@@ -65,6 +65,8 @@ _SLOW_MODULES = {
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: expensive test (excluded by -m fast)")
     config.addinivalue_line("markers", "fast: quick test (run with -m fast)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
