@@ -8,7 +8,10 @@ bool arrays keep their kind.  Shapes are kept as they are: a single-scenario
 JAX object gives single-scenario tensors, and the caller adds the leading
 scenario dimension (for instance by stacking JAX objects first).
 ``to_numpy`` is the inverse used by the tests, so both sides can compute on
-identical data.
+identical data.  ``device=None`` means the GPU
+(:func:`bilevel_gait_gen_tpu_torch.default_device`); the CPU tests pass
+``device="cpu"``.  :func:`from_config` copies a JAX-package ``MPCConfig``
+into the port's own class.
 """
 from __future__ import annotations
 
@@ -17,25 +20,34 @@ import dataclasses
 import numpy as np
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.models.srb import SRBParams
+from bilevel_gait_gen_tpu_torch.mpc.bilevel import OuterCurvature
 from bilevel_gait_gen_tpu_torch.mpc.gait import GaitSchedule
 from bilevel_gait_gen_tpu_torch.mpc.qp import CondensedQP
 from bilevel_gait_gen_tpu_torch.mpc.solver import SolverState
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory
 from bilevel_gait_gen_tpu_torch.ops.pdip import QPSolution
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 def tensor(a, *, device=None, dtype: torch.dtype = torch.float64
            ) -> torch.Tensor:
     arr = np.array(a)        # a copy: JAX hands out read-only buffers
-    t = torch.from_numpy(arr).to(device)
+    t = torch.from_numpy(arr).to(resolve_device(device))
     return t.to(dtype) if arr.dtype.kind == "f" else t
 
 
 def _fields(obj, cls, *, device, dtype, skip=()):
     return {f.name: tensor(getattr(obj, f.name), device=device, dtype=dtype)
             for f in dataclasses.fields(cls) if f.name not in skip}
+
+
+def from_config(cfg) -> MPCConfig:
+    """The port's ``MPCConfig`` with every field of a JAX-package
+    ``MPCConfig`` (a frozen dataclass with the same field names)."""
+    return MPCConfig(**dataclasses.asdict(cfg))
 
 
 def from_robot_model(m, *, device=None) -> RobotModel:
@@ -80,6 +92,12 @@ def from_solver_state(st, *, device=None, dtype=torch.float64) -> SolverState:
 
 def from_condensed_qp(qp, *, device=None, dtype=torch.float64) -> CondensedQP:
     return CondensedQP(**_fields(qp, CondensedQP, device=device, dtype=dtype))
+
+
+def from_outer_curvature(c, *, device=None,
+                         dtype=torch.float64) -> OuterCurvature:
+    return OuterCurvature(**_fields(c, OuterCurvature, device=device,
+                                    dtype=dtype))
 
 
 def to_numpy(obj):

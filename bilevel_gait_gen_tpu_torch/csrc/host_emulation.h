@@ -12,6 +12,7 @@
 // compiles.  Not a model of timing or of the memory model: a check of the
 // arithmetic, indexing and barrier structure only.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -21,6 +22,7 @@
 #include <vector>
 
 using std::isfinite;
+using std::min;
 
 struct dim3 {
   unsigned x, y, z;
@@ -59,6 +61,15 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   emu_warp_barriers[w]->arrive_and_wait();
   const float r = emu_shuffle[w][l ^ lane_mask];
   emu_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+// separately rounded product and difference (no contraction into an FMA)
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fsub_rn(float a, float b) {
+  volatile float r = a - b;
   return r;
 }
 inline float __int_as_float(int i) {

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.models.urdf import _merge_inertia
 
@@ -77,8 +78,10 @@ LEGS = ("FL", "FR", "RL", "RR")
 
 
 def make_a1(device=None) -> RobotModel:
-    """The A1 model; its tensors are float32 on ``device`` (the JAX make_a1
-    keeps float32 numpy arrays, promoted where they meet the state)."""
+    """The A1 model; its tensors are float32 on ``device`` (default: the
+    GPU; the JAX make_a1 keeps float32 numpy arrays, promoted where they
+    meet the state)."""
+    device = resolve_device(device)
     names = ["trunk"]
     parent = [0]
     jtrans = [np.zeros(3)]

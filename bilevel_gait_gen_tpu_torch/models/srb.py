@@ -16,7 +16,7 @@ from bilevel_gait_gen_tpu_torch.models import rbd
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
 from bilevel_gait_gen_tpu_torch.ops import spline
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 def gravity(dtype: torch.dtype, device=None) -> torch.Tensor:
@@ -126,3 +126,31 @@ def discrete_step(params: SRBParams, x_tan: torch.Tensor,
                       bounds, t + 0.5 * dt, cfg)
         return x_tan + dt * k2
     return x_tan + dt * k1
+
+
+def linearize(params: SRBParams, x_tan: torch.Tensor, f_nodes: torch.Tensor,
+              footholds: torch.Tensor, u_unravel, u_flat: torch.Tensor,
+              bounds: torch.Tensor, t: torch.Tensor, cfg: MPCConfig):
+    """Continuous-time (A, B, C) with xdot ~= A x + B u + C, by forward-mode
+    autodiff of :func:`dynamics`.
+
+    x_tan [B, 12], u_flat [B, n_u], bounds [B, E, P+1], t [B] ->
+    A [B, 12, 12], B [B, 12, n_u], C [B, 12]; without the leading dimension
+    the result has none either.  ``u_unravel`` maps the flat input vector
+    back to (f_nodes, footholds); A is taken at the passed f_nodes and
+    footholds, B through ``u_flat``."""
+    def one(x, fn, fh, u, b, tt):
+        def f_of_x(xx):
+            return dynamics(params, xx, fn, fh, b, tt, cfg)
+
+        def f_of_u(uu):
+            return dynamics(params, x, *u_unravel(uu), b, tt, cfg)
+
+        A = torch.func.jacfwd(f_of_x)(x)
+        Bm = torch.func.jacfwd(f_of_u)(u)
+        return A, Bm, f_of_x(x) - A @ x - Bm @ u
+
+    args = (x_tan, f_nodes, footholds, u_flat, bounds, t)
+    if x_tan.ndim == 1:
+        return one(*args)
+    return torch.func.vmap(one)(*args)

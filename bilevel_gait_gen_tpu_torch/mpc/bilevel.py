@@ -1,5 +1,4 @@
-"""Bilevel gait optimization, batch first (port of ``outer_gradient_at``,
-``contact_time_step``, ``_lane_search`` and ``gait_opt_update`` of
+"""Bilevel gait optimization, batch first (port of
 ``bilevel_gait_gen_tpu/mpc/bilevel.py``; the rationale of every policy is
 documented there).
 
@@ -8,9 +7,7 @@ path: ``torch.autograd.grad`` of the batch's summed QP objectives with
 respect to the contact times, through ``qp.assemble`` and the IFT adjoint of
 ``pdip.solve_primal``.  The scenarios are independent, so the sum gives each
 its own gradient.  The alpha lanes of the line search flatten to
-B * ls_alphas problems of one batched solve.  BFGS curvature
-(``cfg.gait_bfgs``), ``line_search`` and ``outer_gradient`` are not ported
-yet.
+B * ls_alphas problems of one batched solve.
 """
 from __future__ import annotations
 
@@ -18,6 +15,7 @@ import dataclasses
 
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.models.srb import SRBParams
 from bilevel_gait_gen_tpu_torch.mpc import qp as qp_mod
 from bilevel_gait_gen_tpu_torch.mpc import solver as solver_mod
@@ -25,7 +23,7 @@ from bilevel_gait_gen_tpu_torch.mpc.gait import GaitSchedule
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory
 from bilevel_gait_gen_tpu_torch.ops import pdip
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 def qp_objective(qp: qp_mod.CondensedQP, u: torch.Tensor) -> torch.Tensor:
@@ -33,6 +31,37 @@ def qp_objective(qp: qp_mod.CondensedQP, u: torch.Tensor) -> torch.Tensor:
     Hu = pdip._mv(qp.H, u)
     return (0.5 * torch.sum(u * Hu, dim=-1) + torch.sum(qp.q * u, dim=-1)
             + qp.cost_const)
+
+
+def _grad_wrt_bounds(cfg, params, traj, x0_man, t0, ee_pos0, x_des_tan,
+                     ee_box, opts, warm) -> torch.Tensor:
+    """d(sum of QP objectives)/d(bounds) through assemble and the IFT
+    adjoint of ``pdip.solve_primal``."""
+    bounds = traj.sched.bounds.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        traj_b = dataclasses.replace(traj, sched=GaitSchedule(bounds=bounds))
+        qp = qp_mod.assemble(cfg, params, traj_b, x0_man, t0, ee_pos0,
+                             x_des_tan, ee_box)
+        u = pdip.solve_primal(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h, opts, warm)
+        (g,) = torch.autograd.grad(qp_objective(qp, u).sum(), bounds)
+    return g
+
+
+def outer_gradient(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
+                   x0_man: torch.Tensor, t0: torch.Tensor,
+                   ee_pos0: torch.Tensor, x_des_tan: torch.Tensor,
+                   ee_box: torch.Tensor,
+                   warm: pdip.QPSolution | None = None) -> torch.Tensor:
+    """dH/dtheta [B, E, P+1]: gradient of the optimal inner-QP objective with
+    respect to the contact times, through a full forward solve
+    (``cfg.ipm_iters`` sweeps; with ``warm``, the RTI's carried solution,
+    on the ``cfg.ipm_exact_every`` cadence)."""
+    set_fp32_precision()
+    opts = (("iters", cfg.ipm_iters), ("tol", cfg.ipm_tol),
+            ("exact_every", cfg.ipm_exact_every if warm is not None else 1),
+            ("inverse", cfg.ipm_inverse))
+    return _grad_wrt_bounds(cfg, params, traj, x0_man, t0, ee_pos0,
+                            x_des_tan, ee_box, opts, warm)
 
 
 def outer_gradient_at(cfg: MPCConfig, params: SRBParams,
@@ -44,23 +73,19 @@ def outer_gradient_at(cfg: MPCConfig, params: SRBParams,
     after ``cfg.ipm_grad_polish`` warm polish sweeps."""
     opts = (("iters", cfg.ipm_grad_polish), ("tol", cfg.ipm_tol),
             ("exact_every", 1), ("inverse", cfg.ipm_inverse))
-    bounds = traj_lin.sched.bounds.detach().clone().requires_grad_(True)
-    with torch.enable_grad():
-        traj_b = dataclasses.replace(traj_lin,
-                                     sched=GaitSchedule(bounds=bounds))
-        qp = qp_mod.assemble(cfg, params, traj_b, x0_man, t0, ee_pos0,
-                             x_des_tan, ee_box)
-        u = pdip.solve_primal(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h, opts, sol)
-        (g,) = torch.autograd.grad(qp_objective(qp, u).sum(), bounds)
-    return g
+    return _grad_wrt_bounds(cfg, params, traj_lin, x0_man, t0, ee_pos0,
+                            x_des_tan, ee_box, opts, sol)
 
 
 def contact_time_step(cfg: MPCConfig, sched: GaitSchedule, grad: torch.Tensor,
                       t0: torch.Tensor,
-                      trust: torch.Tensor | float | None = None) -> torch.Tensor:
+                      trust: torch.Tensor | float | None = None,
+                      Bk: torch.Tensor | None = None) -> torch.Tensor:
     """Projected descent step on the contact times [B, E, P+1]: the small
-    projection QP (ordering/dwell polytope, pinned past and imminent
-    boundaries, infinity-norm trust region) on the unrolled IPM path."""
+    projection QP  min g.d + d.(I + Bk).d / 2  (ordering/dwell polytope,
+    pinned past and imminent boundaries, infinity-norm trust region) on the
+    unrolled IPM path.  ``Bk`` [B, n, n] is the damped-BFGS outer curvature
+    (``cfg.gait_bfgs``), scaled by the same factor as the gradient."""
     b = sched.bounds
     B, E, P1 = b.shape
     n = E * P1
@@ -82,6 +107,8 @@ def contact_time_step(cfg: MPCConfig, sched: GaitSchedule, grad: torch.Tensor,
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
     H = torch.eye(n, dtype=dtype, device=dev).expand(B, n, n)
+    if Bk is not None:
+        H = H + Bk / c_scale[:, None, None]
     q = torch.where(pinned, zero, g)
     A = torch.diag_embed(torch.where(pinned, one, zero))
     beq = torch.zeros(B, n, dtype=dtype, device=dev)
@@ -109,6 +136,115 @@ def contact_time_step(cfg: MPCConfig, sched: GaitSchedule, grad: torch.Tensor,
     d = torch.where(ok[:, None], d, zero)
     b2 = torch.cummax(b + d.reshape(B, E, P1), dim=-1).values
     return b2 - b
+
+
+@dataclasses.dataclass(frozen=True)
+class OuterCurvature:
+    """Damped-BFGS curvature of the outer objective, carried across gait
+    ticks: B [B, n, n] (n = E * (P+1) flattened bounds), theta [B, n] the
+    bounds at which g [B, n] was evaluated, ok [B] whether that pair exists
+    and the bounds array has not been re-indexed since."""
+    B: torch.Tensor
+    theta: torch.Tensor
+    g: torch.Tensor
+    ok: torch.Tensor
+
+
+def init_curvature(cfg: MPCConfig, batch: int, *,
+                   dtype: torch.dtype = torch.float32,
+                   device=None) -> OuterCurvature:
+    """Neutral carry for ``batch`` scenarios: B = 0 (pure gradient until
+    pairs accrue).  ``device`` defaults to the GPU."""
+    device = resolve_device(device)
+    n = cfg.num_ee * (cfg.num_phase_slots + 1)
+    return OuterCurvature(
+        B=torch.zeros(batch, n, n, dtype=dtype, device=device),
+        theta=torch.zeros(batch, n, dtype=dtype, device=device),
+        g=torch.zeros(batch, n, dtype=dtype, device=device),
+        ok=torch.zeros(batch, dtype=torch.bool, device=device))
+
+
+def _bfgs_update(B: torch.Tensor, s: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+    """One Powell-damped BFGS update per scenario,
+    B <- B - B s s^T B / s^T B s + y y^T / s^T y, with y blended toward B s
+    when s^T y < 0.2 s^T B s; degenerate pairs leave B unchanged.
+    B [B, n, n], s and y [B, n]."""
+    Bs = pdip._mv(B, s)
+    sBs = torch.sum(s * Bs, dim=-1)
+    sy = torch.sum(s * y, dim=-1)
+    tau = torch.where(sy < 0.2 * sBs,
+                      0.8 * sBs / torch.clamp_min(sBs - sy, 1e-12),
+                      torch.ones_like(sy))
+    y_d = tau[:, None] * y + (1.0 - tau)[:, None] * Bs
+    sy_d = torch.sum(s * y_d, dim=-1)
+    upd = (B
+           - ((sBs > 1e-12).to(B.dtype) / torch.clamp_min(sBs, 1e-12)
+              )[:, None, None] * (Bs[:, :, None] * Bs[:, None, :])
+           + (y_d[:, :, None] * y_d[:, None, :])
+           / torch.clamp_min(sy_d, 1e-12)[:, None, None])
+    good = ((torch.sum(s * s, dim=-1) > 1e-12) & (sy_d > 1e-12)
+            & torch.isfinite(upd).all(-1).all(-1))
+    return torch.where(good[:, None, None], upd, B)
+
+
+def line_search(cfg: MPCConfig, params: SRBParams,
+                state: solver_mod.SolverState, step: torch.Tensor,
+                x0_man: torch.Tensor, t0: torch.Tensor,
+                ee_pos0: torch.Tensor,
+                x_des_tan: torch.Tensor) -> "GaitOptResult":
+    """Alpha-grid line search over full MPC solves: alpha = i / LS for
+    i = 0..LS-1, each a cold ``solve_step`` (``cfg.ls_ipm_iters`` sweeps)
+    at bounds + alpha * step without window shift; the winner is the
+    minimum trajectory cost among the solved candidates, and with none
+    solved the state is kept.  The returned state carries no warm start.
+    The B x LS candidates run as one batch."""
+    LS = cfg.ls_alphas
+    B = x0_man.shape[0]
+    dtype, dev = x0_man.dtype, x0_man.device
+    alphas = torch.arange(LS, dtype=dtype, device=dev) / LS
+    cfg_lane = (dataclasses.replace(cfg, ipm_iters=cfg.ls_ipm_iters)
+                if cfg.ls_ipm_iters else cfg)
+
+    def lanes(t):
+        return torch.repeat_interleave(t, LS, dim=0)
+
+    tr = state.traj
+    bounds_a = (tr.sched.bounds[:, None]
+                + alphas[None, :, None, None] * step[:, None])
+    traj_a = Trajectory(x_man=lanes(tr.x_man), f_nodes=lanes(tr.f_nodes),
+                        footholds=lanes(tr.footholds),
+                        sched=GaitSchedule(bounds=bounds_a.flatten(0, 1)))
+    st_a = solver_mod.SolverState(traj=traj_a, ee_box=lanes(state.ee_box),
+                                  qp_warm=None)
+    st_a, stats = solver_mod.solve_step(
+        cfg_lane, params, st_a, lanes(x0_man), lanes(t0), lanes(ee_pos0),
+        lanes(x_des_tan), shift_window=False)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    costs = torch.where(stats.solved, stats.cost, inf).reshape(B, LS)
+    best = torch.argmin(costs, dim=-1)
+    rows = torch.arange(B, device=dev)
+    best_cost = costs[rows, best]
+    any_ok = torch.isfinite(best_cost)
+
+    def pick(new, old):
+        win = new.reshape(B, LS, *new.shape[1:])[rows, best]
+        return torch.where(any_ok.reshape(B, *[1] * (win.ndim - 1)), win, old)
+
+    traj_new = Trajectory(
+        x_man=pick(st_a.traj.x_man, tr.x_man),
+        f_nodes=pick(st_a.traj.f_nodes, tr.f_nodes),
+        footholds=pick(st_a.traj.footholds, tr.footholds),
+        sched=GaitSchedule(bounds=pick(st_a.traj.sched.bounds,
+                                       tr.sched.bounds)))
+    new_state = solver_mod.SolverState(
+        traj=traj_new, ee_box=pick(st_a.ee_box, state.ee_box), qp_warm=None)
+    return GaitOptResult(
+        state=new_state, alpha=alphas[best] * any_ok.to(dtype),
+        cost=torch.where(any_ok, best_cost, inf),
+        grad_norm=torch.linalg.vector_norm(step, dim=(-1, -2)),
+        cost0=costs[:, 0], trust=torch.zeros(B, dtype=dtype, device=dev),
+        accepted=torch.ones(B, dtype=torch.bool, device=dev))
 
 
 def _lane_search(cfg: MPCConfig, params: SRBParams,
@@ -161,23 +297,26 @@ class GaitOptResult:
     cost0: torch.Tensor          # [B] objective of the alpha = 0 lane
     trust: torch.Tensor          # [B] radius for the next outer step
     accepted: torch.Tensor       # [B] bool
-    rti_stats: solver_mod.SolveStats
-    rti_obj: torch.Tensor        # [B] embedded RTI's QP objective
-    win_obj: torch.Tensor        # [B] winning lane's QP objective
+    # filled by gait_opt_update; None from a plain line_search
+    rti_stats: solver_mod.SolveStats | None = None
+    rti_obj: torch.Tensor | None = None   # [B] embedded RTI's QP objective
+    win_obj: torch.Tensor | None = None   # [B] winning lane's QP objective
+    curv: OuterCurvature | None = None    # BFGS carry (cfg.gait_bfgs)
 
 
 def gait_opt_update(cfg: MPCConfig, params: SRBParams,
                     state: solver_mod.SolverState, x0_man: torch.Tensor,
                     t0: torch.Tensor, ee_pos0: torch.Tensor,
                     x_des_tan: torch.Tensor,
-                    trust: torch.Tensor | float | None = None
-                    ) -> GaitOptResult:
+                    trust: torch.Tensor | float | None = None,
+                    curv: OuterCurvature | None = None) -> GaitOptResult:
     """One full bilevel update for B scenarios, replacing one inner RTI:
     production solve (captured) -> IFT gradient at that solution ->
-    projection QP -> line-search lanes -> trust-region acceptance."""
+    projection QP -> line-search lanes -> trust-region acceptance.  With
+    ``cfg.gait_bfgs`` and a ``curv`` carry (pass ``res.curv`` back in), the
+    projection QP and the ratio test use the damped-BFGS quadratic model;
+    the carry resets when the bounds array was re-indexed between ticks."""
     set_fp32_precision()
-    if cfg.gait_bfgs:
-        raise NotImplementedError("gait_bfgs is not ported yet")
     dtype, dev = x0_man.dtype, x0_man.device
     B = x0_man.shape[0]
     trust_in = torch.as_tensor(cfg.trust_region if trust is None else trust,
@@ -191,7 +330,23 @@ def gait_opt_update(cfg: MPCConfig, params: SRBParams,
     g_ok = stats.solved & torch.isfinite(g).all(-1).all(-1)
     g = torch.where(g_ok[:, None, None], g, torch.zeros_like(g))
 
-    d = contact_time_step(cfg, st1.traj.sched, g, t0, trust=trust_in)
+    Bk = None
+    theta_now = st1.traj.sched.bounds.reshape(B, -1)
+    g_flat = g.reshape(B, -1)
+    if cfg.gait_bfgs and curv is not None:
+        # a window roll or flight hold re-indexes or translates the bounds
+        # between ticks; the past boundary theta[:, 0] is pinned by the step
+        # QP, so a change there flags it: the carried matrix is then in the
+        # old slot frame and is reset to zero
+        aligned = curv.ok & torch.all(
+            torch.abs(curv.theta.reshape(st1.traj.sched.bounds.shape)[..., 0]
+                      - st1.traj.sched.bounds[..., 0]) < 1e-6, dim=-1)
+        Bk = torch.where(aligned[:, None, None],
+                         _bfgs_update(curv.B, theta_now - curv.theta,
+                                      g_flat - curv.g),
+                         torch.zeros_like(curv.B))
+
+    d = contact_time_step(cfg, st1.traj.sched, g, t0, trust=trust_in, Bk=Bk)
     win_alpha, win_obj, cost0 = _lane_search(
         cfg, params, st1, d, x0_man, t0, ee_pos0, x_des_tan)
 
@@ -200,6 +355,12 @@ def gait_opt_update(cfg: MPCConfig, params: SRBParams,
     g_n = g / torch.clamp_min(torch.amax(torch.abs(g), dim=(-1, -2)),
                               1.0)[:, None, None]
     pred = -win_alpha * torch.sum(g_n * d, dim=(-1, -2))
+    if Bk is not None:
+        # quadratic model: pred = -(a g_n.d + a^2 / 2 d.(Bk / c).d)
+        c_sc = torch.clamp_min(torch.amax(torch.abs(g), dim=(-1, -2)), 1.0)
+        df = d.reshape(B, -1)
+        pred = pred - (0.5 * win_alpha ** 2
+                       * torch.sum(df * pdip._mv(Bk, df), dim=-1) / c_sc)
     actual = cost0 - win_obj
     tiny = 100 * torch.finfo(dtype).eps
     ratio = actual / torch.clamp_min(pred, tiny)
@@ -224,10 +385,17 @@ def gait_opt_update(cfg: MPCConfig, params: SRBParams,
         grow, torch.clamp_max(trust_in * cfg.tr_grow, cfg.trust_region),
         torch.where(accepted, trust_in,
                     torch.clamp_min(trust_in * cfg.tr_shrink, cfg.tr_min)))
+    curv_new = None
+    if cfg.gait_bfgs and curv is not None:
+        # this tick's evaluation point: the next tick's (s, y) pair spans
+        # consecutive gradient evaluations
+        curv_new = OuterCurvature(
+            B=Bk, theta=theta_now, g=g_flat,
+            ok=stats.solved & torch.isfinite(g_flat).all(-1))
     zero = torch.zeros((), dtype=dtype, device=dev)
     return GaitOptResult(
         state=new_state, alpha=torch.where(accepted, win_alpha, zero),
         cost=torch.where(accepted, win_obj, cost0),
         grad_norm=torch.linalg.vector_norm(d, dim=(-1, -2)), cost0=cost0,
         trust=trust_new, accepted=accepted, rti_stats=stats,
-        rti_obj=rti_obj, win_obj=win_obj)
+        rti_obj=rti_obj, win_obj=win_obj, curv=curv_new)

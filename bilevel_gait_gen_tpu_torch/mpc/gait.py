@@ -2,9 +2,7 @@
 ``bilevel_gait_gen_tpu/mpc/gait.py``).
 
 ``bounds`` is ``[..., E, P+1]`` (leading scenario dimensions allowed); even
-slots are stance, odd slots swing.  The contact-adjust and flight-hold
-helpers of the JAX module, which only the closed loop uses, are not ported
-yet.
+slots are stance, odd slots swing.
 """
 from __future__ import annotations
 
@@ -12,8 +10,9 @@ import dataclasses
 
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +30,8 @@ def make_trot(cfg: MPCConfig, t0: float = 0.0, *, dtype: torch.dtype,
               device=None) -> GaitSchedule:
     """Default trot [E, P+1]: phases of ``phase_duration``, FR/RL starting
     in contact and FL/RR in swing (see the JAX docstring for the
-    double-support variant)."""
+    double-support variant).  ``device`` defaults to the GPU."""
+    device = resolve_device(device)
     E, P, d = cfg.num_ee, cfg.num_phase_slots, cfg.phase_duration
     ov = cfg.double_support
     k = torch.arange(P + 1, dtype=dtype, device=device)
@@ -43,6 +43,18 @@ def make_trot(cfg: MPCConfig, t0: float = 0.0, *, dtype: torch.dtype,
         start_in_contact = ee in (1, 2) if E == 4 else (ee % 2 == 1)
         rows.append(base if start_in_contact else base - d)
     return GaitSchedule(bounds=torch.stack(rows))
+
+
+def make_standing(cfg: MPCConfig, t0: float = 0.0, *, dtype: torch.dtype,
+                  device=None) -> GaitSchedule:
+    """All feet in stance forever [E, P+1]: chained 2d stances with
+    zero-length swings between them (stance slot c spans
+    [t0 + (2c-1) d, t0 + (2c+1) d])."""
+    device = resolve_device(device)
+    P, d = cfg.num_phase_slots, cfg.phase_duration
+    k = torch.arange(P + 1, dtype=dtype, device=device)
+    bounds = t0 + d * torch.where(k % 2 == 0, k - 1, k)
+    return GaitSchedule(bounds=bounds.repeat(cfg.num_ee, 1))
 
 
 # ----------------------------------------------------------------------------
@@ -131,3 +143,51 @@ def roll_spline_vars(f_nodes: torch.Tensor, footholds: torch.Tensor,
 def past_cycles(sched: GaitSchedule, t0: torch.Tensor) -> torch.Tensor:
     """[..., E] number of fully past (stance, swing) cycles."""
     return torch.sum(sched.bounds[..., 2::2] <= _t_rows(t0), dim=-1)
+
+
+# ----------------------------------------------------------------------------
+# Closed-loop fixups; ``measured`` [..., E] bool, ``t`` [...]
+# ----------------------------------------------------------------------------
+
+def adjust_for_current_contacts(sched: GaitSchedule, measured: torch.Tensor,
+                                t: torch.Tensor,
+                                window: float = 7e-2) -> GaitSchedule:
+    """Early-touchdown fixup: feet that measure contact while still scheduled
+    for swing, within ``window`` seconds of their planned touchdown, get the
+    touchdown snapped to now."""
+    desired = contact_flags(sched, t)
+    next_td = next_touchdown_time(sched.bounds, t[..., None])
+    mask = measured & ~desired & ((next_td - t[..., None]) < window)
+    return set_ee_in_contact(sched, mask, t)
+
+
+def hold_for_flight(sched: GaitSchedule, measured: torch.Tensor,
+                    dt_slip: torch.Tensor | float) -> GaitSchedule:
+    """Flight-phase hold: while no foot measures contact, every boundary
+    shifts later by ``dt_slip`` (a time translation of the schedule)."""
+    b = sched.bounds
+    airborne = ~torch.any(measured, dim=-1)
+    slip = torch.as_tensor(dt_slip, dtype=b.dtype, device=b.device)
+    shift = torch.where(airborne, slip, torch.zeros_like(slip))
+    return GaitSchedule(bounds=b + shift[..., None, None])
+
+
+def set_ee_in_contact(sched: GaitSchedule, ee_mask: torch.Tensor,
+                      t: torch.Tensor) -> GaitSchedule:
+    """Pull the next touchdown of the feet in ``ee_mask`` [..., E] back to
+    time t, keeping each row nondecreasing."""
+    b = sched.bounds
+    P1 = b.shape[-1]
+    tt = _t_rows(t).to(b.dtype)
+    cols = torch.arange(P1, device=b.device)
+    is_td = cols % 2 == 0
+    cand = torch.where(is_td & (b > tt), b, b[..., -1:] + 1e6)
+    td_col = torch.argmin(cand, dim=-1)                        # [..., E]
+    onehot = (cols == td_col[..., None]).to(b.dtype)
+    mask = ee_mask[..., None]
+    new_b = torch.where(mask, b * (1 - onehot) + tt * onehot, b)
+    # boundaries before the moved one must not exceed it
+    inf = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+    cap = torch.where(cols <= td_col[..., None], tt + 0.0 * new_b, inf)
+    new_b = torch.minimum(new_b, cap)
+    return GaitSchedule(bounds=torch.where(mask, new_b, b))

@@ -7,8 +7,9 @@ is a dense masked product over the spline basis weights.  The JAX package
 scatters per-end-effector blocks with ``.at[idx_e, ..., idx_e].set``; here
 the same block-diagonal layout is a product with the identity over end
 effectors, which is exact and differentiable.  Everything is differentiable
-in ``traj.sched.bounds`` by autograd.  ``assemble_ad`` (the autodiff
-reference build) and the Raibert rows (``cfg.raibert``) are not ported yet.
+in ``traj.sched.bounds`` by autograd.  :func:`assemble_ad` builds the same
+QP by autodiff of the spline and dynamics functions, one scenario at a time:
+the oracle the tests hold :func:`assemble` to.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from bilevel_gait_gen_tpu_torch.mpc import gait as gait_mod
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory, ravel_u
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
 from bilevel_gait_gen_tpu_torch.ops import spline
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +79,6 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
 
     x0_man [B, 13], t0 [B], ee_pos0 [B, E, 3], x_des_tan [B, 12],
     ee_box_size [B, 2]."""
-    if cfg.raibert:
-        raise NotImplementedError("Raibert rows are not ported yet")
     N, dt, E = cfg.num_nodes, cfg.dt, cfg.num_ee
     F = cfg.num_force_polys
     S_slots = cfg.num_stance_slots
@@ -280,9 +279,217 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
     A_td = torch.where(td_mask[..., None], A_td, zero)
     b_td = torch.where(td_mask, b_td, zero)
 
-    return CondensedQP(H=H, q=q, A=torch.cat([A_start, A_td], dim=1),
-                       b=torch.cat([b_start, b_td], dim=1), G=G, h=h_vec,
+    A_parts, b_parts = [A_start, A_td], [b_start, b_td]
+    if cfg.raibert:
+        # Raibert rows: foot_xy(td) - com_xy(node) - kappa h_xy(node) =
+        # hip offset - kappa h_des, for every touchdown inside the horizon;
+        # kappa = vel_gain T_stance / (2 m)
+        td_all = bounds[..., 0::2]                            # [B, E, NT]
+        NT = td_all.shape[-1]
+        t0e = t0[:, None, None]
+        nodes = torch.clamp(torch.floor(
+            (td_all - t0e) / dt - 1e-2 / dt).long(), 0, N)
+        t_st = bounds[..., 1::2] - bounds[..., 0:-1:2]
+        t_stance = torch.cat([t_st, torch.ones_like(t_st[..., :1])],
+                             dim=-1)[..., :NT]
+        vg = torch.as_tensor(cfg.raibert_vel_gain, dtype=dtype,
+                             device=dev).expand(2)
+        kappa = vg * t_stance[..., None] / (2.0 * params.mass)  # [B,E,NT,2]
+        wp_r = spline.foothold_weights(bounds[:, :, None, :], td_all)
+        rw = torch.einsum('bejm,cd->bejcmd', wp_r, eye2)
+        A_r_p = _block_diag_ee(rw, 1, 4).reshape(B, E * NT * 2, E * NF * 2)
+        A_r_u = torch.cat([torch.zeros(B, E * NT * 2, nf, dtype=dtype,
+                                       device=dev), A_r_p], dim=-1)
+        b_ix = torch.arange(B, device=dev)[:, None, None]
+        S_nodes = S_stack[b_ix, nodes]                  # [B, E, NT, 12, n_u]
+        c_nodes = c_stack[b_ix, nodes]                        # [B, E, NT, 12]
+        A_raib = A_r_u - (S_nodes[..., 0:2, :] + kappa[..., None]
+                          * S_nodes[..., 3:5, :]).reshape(B, E * NT * 2, n_u)
+        hip_r = params.hip_offset_raw.to(dtype) * torch.tensor(
+            cfg.raibert_hip_scale, dtype=dtype, device=dev)
+        h_des = x_des_tan[:, None, None, 3:5]
+        b_raib = (hip_r[None, :, None, :] - kappa * h_des
+                  + c_nodes[..., 0:2] + kappa * c_nodes[..., 3:5]
+                  ).reshape(B, -1)
+        mask_r = torch.repeat_interleave(
+            _raibert_active(cfg, bounds, t0, td_active, td_t).reshape(B, -1),
+            2, dim=-1)
+        A_parts.append(torch.where(mask_r[..., None], A_raib, zero))
+        b_parts.append(torch.where(mask_r, b_raib, zero))
+
+    return CondensedQP(H=H, q=q, A=torch.cat(A_parts, dim=1),
+                       b=torch.cat(b_parts, dim=1), G=G, h=h_vec,
                        S=S_stack, c=c_stack, cost_const=cost_const)
+
+
+def _raibert_active(cfg: MPCConfig, bounds, t0, td_active, td_t):
+    """[..., E, NT] touchdowns that get a Raibert row: inside the horizon,
+    after a real swing (a chained standing stance is no landing), and not
+    already claimed by the TD pin.  bounds [..., E, P+1], t0 [...],
+    td_active and td_t [..., E]."""
+    td_all = bounds[..., 0::2]
+    NT = td_all.shape[-1]
+    t0e = t0[..., None, None]
+    prv_sw = td_all - torch.cat([td_all[..., :1] - 1.0,
+                                 bounds[..., 1::2][..., :NT - 1]], dim=-1)
+    return ((td_all > t0e) & (td_all < t0e + cfg.num_nodes * cfg.dt)
+            & (prv_sw > 1e-4)
+            & ~(td_active[..., None]
+                & (torch.abs(td_all - td_t[..., None]) < 1e-9)))
+
+
+def assemble_ad(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
+                x0_man: torch.Tensor, t0: torch.Tensor, ee_pos0: torch.Tensor,
+                x_des_tan: torch.Tensor,
+                ee_box_size: torch.Tensor) -> CondensedQP:
+    """The condensed QP of :func:`assemble` built by autodiff: the dynamics
+    linearized with ``srb.linearize``, the constraint rows as Jacobians of
+    the spline value functions.  Euler discretization only.  One scenario
+    at a time in a Python loop: an oracle for tests, not a serving path."""
+    B = x0_man.shape[0]
+    qps = [_assemble_ad_one(cfg, params, traj.x_man[i], traj.f_nodes[i],
+                            traj.footholds[i], traj.sched.bounds[i],
+                            x0_man[i], t0[i], ee_pos0[i], x_des_tan[i],
+                            ee_box_size[i]) for i in range(B)]
+    return CondensedQP(**{f.name: torch.stack([getattr(q, f.name)
+                                               for q in qps])
+                          for f in dataclasses.fields(CondensedQP)})
+
+
+def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
+                     t0, ee_pos0, x_des_tan, ee_box_size) -> CondensedQP:
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import make_unravel
+    N, dt, E = cfg.num_nodes, cfg.dt, cfg.num_ee
+    dtype, dev = x0_man.dtype, x0_man.device
+    unravel = make_unravel(cfg)
+    u_prev = ravel_u(f_nodes, footholds)
+    n_u = u_prev.shape[0]
+    xs_tan = srb.manifold_to_tangent(x_man)
+    times = t0 + dt * torch.arange(N + 1, dtype=dtype, device=dev)
+
+    # ---- dynamics linearization and condensing ----------------------------
+    def rep(a):
+        return a.expand(N, *a.shape)
+
+    A, Bm, C = srb.linearize(params, xs_tan[:N], rep(f_nodes),
+                             rep(footholds), unravel, rep(u_prev),
+                             rep(bounds), times[:N], cfg)
+    I12 = torch.eye(12, dtype=dtype, device=dev)
+    S_k = torch.zeros(12, n_u, dtype=dtype, device=dev)
+    c_k = srb.manifold_to_tangent(x0_man)
+    S_list, c_list = [S_k], [c_k]
+    for k in range(N):
+        S_k = (I12 + dt * A[k]) @ S_k + dt * Bm[k]
+        c_k = (I12 + dt * A[k]) @ c_k + dt * C[k]
+        S_list.append(S_k)
+        c_list.append(c_k)
+    S_stack, c_stack = torch.stack(S_list), torch.stack(c_list)
+
+    # ---- cost -------------------------------------------------------------
+    qdiag = torch.tensor(cfg.q_diag, dtype=dtype, device=dev)
+    Qk = (qdiag + cfg.diag_reg).expand(N + 1, 12)
+    wk = (-qdiag * x_des_tan).expand(N + 1, 12)
+    Sf = S_stack.reshape((N + 1) * 12, n_u)
+    H = (S_stack * Qk[:, :, None]).reshape((N + 1) * 12, n_u).T @ Sf
+    q = torch.einsum('kiu,ki->u', S_stack, Qk * c_stack + wk)
+    u_diag = torch.cat([
+        torch.full((cfg.num_force_vars,), cfg.force_cost + cfg.diag_reg,
+                   dtype=dtype, device=dev),
+        torch.full((cfg.num_pos_vars,), cfg.diag_reg, dtype=dtype,
+                   device=dev)])
+    H = H + torch.diag(u_diag)
+    cost_const = (0.5 * torch.sum(Qk * c_stack * c_stack)
+                  + torch.sum(wk * c_stack))
+
+    # ---- inequality rows ---------------------------------------------------
+    pyr = friction_pyramid(cfg.friction_coef, dtype=dtype, device=dev)
+    FB, S_slots = cfg.samples_per_stance, cfg.num_stance_slots
+    ts = _sample_times(bounds, cfg)                           # [E, S, FB]
+    ks = list(range(cfg.ee_node_start, N + 1))
+
+    def ineq_vals(u):
+        fn, fh = unravel(u)
+        f = spline.force_value(bounds[:, None, None, :],
+                               fn[:, None, None], ts,
+                               cfg.num_force_polys)           # [E, S, FB, 3]
+        if cfg.force_carrier:
+            carr = spline.carrier_weights(bounds, ts, cfg.carrier_ramp)
+            own = torch.diagonal(carr, dim1=0, dim2=3).movedim(-1, 0)
+            f = torch.cat([f[..., :2], f[..., 2:]
+                           + (own * (params.mass * 9.81))[..., None]], dim=-1)
+        cone = torch.einsum('ri,esfi->esfr', pyr, f).reshape(-1)
+        fz = f[..., 2].reshape(-1)
+        com_xy = S_stack[ks, 0:2] @ u + c_stack[ks, 0:2]       # [Nk, 2]
+        feet = spline.foot_positions_all(bounds, fh, times[ks],
+                                         cfg.swing_height, cfg.foot_offset)
+        box = (feet[..., :2] - com_xy[:, None, :]).reshape(-1)
+        return torch.cat([cone, fz, box])
+
+    v0 = ineq_vals(torch.zeros_like(u_prev))
+    G_half = torch.func.jacrev(ineq_vals)(u_prev)
+    n_cone, n_fz = E * S_slots * FB * 4, E * S_slots * FB
+    hip = params.hip_offset.to(dtype)
+    half_box = (ee_box_size / 2).expand(E, 2)
+    ub = (hip + half_box).reshape(-1).repeat(len(ks))
+    lb = (hip - half_box).reshape(-1).repeat(len(ks))
+    v_fz = v0[n_cone:n_cone + n_fz]
+    G = torch.cat([G_half[:n_cone], G_half[n_cone:n_cone + n_fz],
+                   -G_half[n_cone:n_cone + n_fz], G_half[n_cone + n_fz:],
+                   -G_half[n_cone + n_fz:]])
+    h = torch.cat([-v0[:n_cone], cfg.force_bound - v_fz, v_fz,
+                   ub - v0[n_cone + n_fz:], -lb + v0[n_cone + n_fz:]])
+
+    # ---- equality rows -----------------------------------------------------
+    td_t = gait_mod.next_touchdown_time(bounds, t0)           # [E]
+    swing = gait_mod.current_swing_time(bounds, t0)
+    td_active = (td_t - t0) < cfg.td_fraction * swing
+    td_all = bounds[:, 0::2]                                  # [E, NT]
+    NT = td_all.shape[1]
+    if cfg.raibert:
+        nodes = torch.clamp(torch.floor(
+            (td_all - t0) / dt - 1e-2 / dt).long(), 0, N)
+        t_st = bounds[:, 1::2] - bounds[:, 0:-1:2]
+        t_stance = torch.cat([t_st, torch.ones_like(t_st[:, :1])],
+                             dim=-1)[:, :NT]
+        vg = torch.as_tensor(cfg.raibert_vel_gain, dtype=dtype,
+                             device=dev).expand(2)
+        kappa = vg * t_stance[..., None] / (2.0 * params.mass)  # [E, NT, 2]
+
+    def foot_xy(fh, tt):
+        return spline.foot_position(bounds, fh, tt, cfg.swing_height,
+                                    cfg.foot_offset)[..., :2]
+
+    def eq_vals(u):
+        _, fh = unravel(u)
+        parts = [foot_xy(fh, t0).reshape(-1), foot_xy(fh, td_t).reshape(-1)]
+        if cfg.raibert:
+            foot = spline.foot_position(bounds[:, None, :], fh[:, None],
+                                        td_all, cfg.swing_height,
+                                        cfg.foot_offset)[..., :2]
+            x_node = S_stack[nodes] @ u + c_stack[nodes]       # [E, NT, 12]
+            parts.append((foot - x_node[..., 0:2]
+                          - kappa * x_node[..., 3:5]).reshape(-1))
+        return torch.cat(parts)
+
+    ev0 = eq_vals(torch.zeros_like(u_prev))
+    A_eq = torch.func.jacrev(eq_vals)(u_prev)
+    td_now = foot_xy(footholds, td_t).reshape(-1)
+    b_parts = [ee_pos0[:, :2].reshape(-1) - ev0[:2 * E],
+               td_now - ev0[2 * E:4 * E]]
+    mask_parts = [torch.ones(2 * E, dtype=torch.bool, device=dev),
+                  torch.repeat_interleave(td_active, 2)]
+    if cfg.raibert:
+        hip_r = params.hip_offset_raw.to(dtype) * torch.tensor(
+            cfg.raibert_hip_scale, dtype=dtype, device=dev)
+        hip_b = (hip_r[:, None, :] - kappa * x_des_tan[3:5]).reshape(-1)
+        b_parts.append(hip_b - ev0[4 * E:])
+        mask_parts.append(torch.repeat_interleave(
+            _raibert_active(cfg, bounds, t0, td_active, td_t).reshape(-1), 2))
+    mask = torch.cat(mask_parts)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    return CondensedQP(H=H, q=q, A=torch.where(mask[:, None], A_eq, zero),
+                       b=torch.where(mask, torch.cat(b_parts), zero), G=G,
+                       h=h, S=S_stack, c=c_stack, cost_const=cost_const)
 
 
 def recover_states(qp: CondensedQP, u: torch.Tensor) -> torch.Tensor:

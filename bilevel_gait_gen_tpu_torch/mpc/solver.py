@@ -5,8 +5,9 @@ is documented there).
 One call of :func:`solve_step` advances B scenarios: shift the receding
 window, assemble the condensed QP around the previous trajectory, solve it
 with the interior-point method, run the merit line search and the quality
-gate, update the trajectory and carry the warm start.  ``create_initial_run``
-and the ``admm`` backend are not ported yet.
+gate, update the trajectory and carry the warm start.
+:func:`create_initial_run` is the SQP run to convergence before going real
+time.  The ``admm`` backend is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from bilevel_gait_gen_tpu_torch.mpc.trajectory import (Trajectory,
                                                        make_unravel, ravel_u)
 from bilevel_gait_gen_tpu_torch.ops import pdip
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,3 +223,23 @@ def solve_step(cfg: MPCConfig, params: SRBParams, state: SolverState,
     if return_ext:
         return new_state, stats, SolveExt(qp=qp, sol=sol, traj_lin=traj)
     return new_state, stats
+
+
+def create_initial_run(cfg: MPCConfig, params: SRBParams, state: SolverState,
+                       x0_man: torch.Tensor, ee_pos0: torch.Tensor,
+                       x_des_tan: torch.Tensor,
+                       t0: torch.Tensor | float = 0.0
+                       ) -> tuple[SolverState, SolveStats]:
+    """Full SQP before going real time: ``cfg.init_run_iters`` iterations of
+    :func:`solve_step` without window shift, every sweep an exact refresh
+    (``ipm_exact_every=1``: Newton-Schulz tracking from a stale inverse
+    diverges on these cold QPs).  ``t0`` is a scalar or [B].  Returns the
+    final state and the last iteration's stats."""
+    t0 = torch.as_tensor(t0, dtype=x0_man.dtype, device=x0_man.device)
+    t0 = t0.expand(x0_man.shape[0])
+    cfg_init = dataclasses.replace(cfg, ipm_exact_every=1)
+    stats = None
+    for _ in range(cfg.init_run_iters):
+        state, stats = solve_step(cfg_init, params, state, x0_man, t0,
+                                  ee_pos0, x_des_tan, shift_window=False)
+    return state, stats

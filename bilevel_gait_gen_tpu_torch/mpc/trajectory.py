@@ -7,7 +7,7 @@ import dataclasses
 import torch
 
 from bilevel_gait_gen_tpu_torch.mpc.gait import GaitSchedule
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the main path, with their plain versions.
 
-Ports of the two TPU kernels of ``bilevel_gait_gen_tpu/ops/pallas_kernels.py``
-that the bench cadence reaches:
+Ports of the three TPU kernels of
+``bilevel_gait_gen_tpu/ops/pallas_kernels.py``:
 
 * :func:`gtwg` (``csrc/gtwg.cu``) replaces ``pallas_kernels.gtwg``:
   batched M = H + G^T diag(W) G (+ reg I).  Bound on this card by FP32 FFMA
@@ -17,6 +17,15 @@ that the bench cadence reaches:
   rest of the iteration.  Bound by memory traffic (G, M and Mi are streamed
   several times per sweep, mostly from L2); the simple design keeps every
   vector in shared memory and reads matrices with whole warps.
+* :func:`gj_inverse` (``csrc/gj_inverse.cu``) replaces
+  ``pallas_kernels.gj_inverse``: the batched Gauss-Jordan inverse without
+  pivoting, blocked for n a multiple of the block width.  One block owns
+  one matrix, which stays in the output buffer (L2 resident at the main
+  path's batch); the diagonal block and the panels of a step are staged in
+  shared memory.  Latency bound on the chain of n dependent pivot steps.
+  :func:`spd_inverse` is the tensor code around it (Jacobi scaling, identity
+  padding, shift, guarded Newton-Schulz deflation), the exact refresh of
+  ``cfg.ipm_inverse="gj"``.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version only on a CPU tensor; there is no fallback.  Each keeps
@@ -41,7 +50,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-_SOURCES = ("common.cuh", "gtwg.cu", "ipm_iter.cu")
+_SOURCES = ("common.cuh", "gtwg.cu", "ipm_iter.cu", "gj_inverse.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -54,6 +63,9 @@ _SIGNATURES = {
     "bggt_gemm": ([_P, _P, _P, _I, _I, _F, _F, _P], _I),
     "bggt_ipm_iter": ([_P] * 20 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                    _I, _P], _I),
+    "bggt_gj_inverse": ([_P, _P, _I, _I, _I, _P], _I),
+    "bggt_gj_smem_bytes": ([_I], _I),
+    "bggt_gj_block_width": ([], _I),
     "bggt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -330,6 +342,142 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
 ipm_iter.launches = 0
 
 
+# ----------------------------------------------------------------------------
+# gj_inverse / spd_inverse
+# ----------------------------------------------------------------------------
+
+GJ_BLOCK = 32             # block width of csrc/gj_inverse.cu (kW)
+MAX_SMEM_BYTES = 232448   # dynamic shared memory one Hopper block may use
+
+
+def _gj_scalar(A: torch.Tensor) -> torch.Tensor:
+    """Masked scalar Gauss-Jordan inverse of [..., n, n] without pivoting
+    (``pallas_kernels._gj_kernel`` / ``_gj_block``): n rank-1 steps; a pivot
+    with |p| < 1e-30 becomes 1e-30 and the elimination goes on."""
+    n = A.shape[-1]
+    for j in range(n):
+        p = A[..., j, j]
+        pinv = 1.0 / torch.where(p.abs() < 1e-30, 1e-30, p)
+        rowj = A[..., j, :] * pinv[..., None]
+        rowj[..., j] = pinv
+        colz = A[..., :, j].clone()
+        colz[..., j] = 0.0
+        upd = A - colz[..., :, None] * rowj[..., None, :]
+        upd[..., j, :] = rowj
+        colh = -(pinv[..., None] * colz)
+        colh[..., j] = pinv
+        upd[..., :, j] = colh
+        A = upd
+    return A
+
+
+def gj_inverse_reference(M: torch.Tensor, w: int = 128) -> torch.Tensor:
+    """Plain version of the Gauss-Jordan inverse of [..., n, n] (any device
+    and dtype): the blocked form of ``_gj_kernel_blocked`` with block width
+    ``w`` when n is a multiple of ``w`` (128 is the JAX kernel's width), the
+    scalar form of ``_gj_kernel`` otherwise."""
+    n = M.shape[-1]
+    if n % w != 0:
+        return _gj_scalar(M)
+    A = M.clone()
+    eye2 = 2.0 * torch.eye(w, dtype=M.dtype, device=M.device)
+    for lo in range(0, n, w):
+        hi = lo + w
+        D = A[..., lo:hi, lo:hi].clone()
+        Dinv = _gj_scalar(D)
+        Dinv = Dinv @ (eye2 - D @ Dinv)
+        rowJ = A[..., lo:hi, :].clone()
+        rowJ[..., :, lo:hi] = 0.5 * eye2
+        rowJ = Dinv @ rowJ
+        colz = A[..., :, lo:hi].clone()
+        colz[..., lo:hi, :] = 0.0
+        A = A - colz @ rowJ
+        A[..., lo:hi, :] = rowJ
+        colh = -(colz @ Dinv)
+        colh[..., lo:hi, :] = Dinv
+        A[..., :, lo:hi] = colh
+    return A
+
+
+def gj_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Batched Gauss-Jordan inverse of SPD [..., n, n] without pivoting.
+
+    On the card: ``csrc/gj_inverse.cu`` (float32), the blocked form with
+    block width :data:`GJ_BLOCK` when n is a multiple of it, else the scalar
+    form.  On CPU tensors: :func:`gj_inverse_reference`.  There is no
+    Cholesky fallback, unlike the JAX wrapper off the TPU."""
+    n = M.shape[-1]
+    _require(M.ndim >= 2 and M.shape[-2] == n,
+             f"square matrices expected, got {tuple(M.shape)}")
+    if not _on_card(M):
+        return gj_inverse_reference(M)
+    lib, _ = build()
+    _require(lib.bggt_gj_block_width() == GJ_BLOCK,
+             "kernel block width differs from GJ_BLOCK")
+    blocked = n % GJ_BLOCK == 0
+    if blocked:
+        need = lib.bggt_gj_smem_bytes(n)
+        _require(need <= MAX_SMEM_BYTES,
+                 f"n={n}: the panels need {need} bytes of shared memory")
+    Mc = M.contiguous()
+    out = torch.empty_like(Mc)
+    B = Mc.numel() // (n * n)
+    _check(lib, lib.bggt_gj_inverse(_ptr(Mc), _ptr(out), B, n, int(blocked),
+                                    _stream()), "gj_inverse")
+    gj_inverse.launches += 1
+    return out
+
+
+gj_inverse.launches = 0
+
+
+def spd_scale_pad(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The matrix :func:`spd_inverse` works on: M Jacobi-scaled to unit
+    diagonal and padded with an identity block to a multiple of 128.
+    Returns (Mp [..., n_p, n_p], d [..., n]) with Mp[:n, :n] = D M D."""
+    n = M.shape[-1]
+    n_p = -(-n // 128) * 128
+    dg = torch.diagonal(M, dim1=-2, dim2=-1)
+    d = torch.rsqrt(torch.maximum(
+        dg, 1e-12 * torch.clamp_min(torch.amax(dg, dim=-1, keepdim=True),
+                                    1.0)))
+    Mp = M * d[..., :, None] * d[..., None, :]
+    if n_p != n:
+        Mp = torch.nn.functional.pad(Mp, (0, n_p - n, 0, n_p - n))
+        tail = torch.cat([M.new_zeros(n), M.new_ones(n_p - n)])
+        Mp = Mp + torch.diag(tail)
+    return Mp, d
+
+
+def spd_inverse(M: torch.Tensor, *, shift: float = 1e-3,
+                deflate: int = 10) -> torch.Tensor:
+    """SPD inverse of [..., n, n] for any n (``pallas_kernels.spd_inverse``):
+    Jacobi-scale to unit diagonal, pad with an identity block to a multiple
+    of 128, invert the shifted matrix M + shift I with :func:`gj_inverse`,
+    deflate the shift with ``deflate`` guarded Newton-Schulz steps that keep
+    the best-residual iterate per matrix, crop and unscale."""
+    n = M.shape[-1]
+    Mp, d = spd_scale_pad(M)
+    n_p = Mp.shape[-1]
+    eye_p = torch.eye(n_p, dtype=M.dtype, device=M.device)
+    out = gj_inverse(Mp + shift * eye_p)
+    if deflate:
+        def resid(X):
+            return torch.amax(torch.abs(Mp @ X - eye_p), dim=(-2, -1))
+
+        r_best = resid(out)
+        for _ in range(deflate):
+            cand = out @ (2.0 * eye_p - Mp @ out)
+            r = resid(cand)
+            fin = torch.isfinite(r)
+            take = (r < r_best) & fin
+            out = torch.where(take[..., None, None], cand, out)
+            r_best = torch.minimum(r_best, torch.where(fin, r, r_best))
+    out = out[..., :n, :n]
+    return out * d[..., :, None] * d[..., None, :]
+
+
 def reset_launch_counts() -> None:
     gtwg.launches = 0
     ipm_iter.launches = 0
+    gj_inverse.launches = 0

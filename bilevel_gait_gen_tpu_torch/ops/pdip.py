@@ -9,7 +9,9 @@ scenario dimension B):
 Two sweep paths, chosen as in the JAX package:
 
 * the unrolled path: per sweep, M = H + G^T W G + reg I in tensor code, an
-  exact Cholesky inverse or a Newton-Schulz refresh of the carried one, then
+  exact inverse (``inverse``: "chol" the Cholesky, "gj" the Gauss-Jordan
+  kernel through ``kernels.spd_inverse``, "schur" the shifted recursive
+  Schur inverse) or a Newton-Schulz refresh of the carried one, then
   :func:`_iteration_math`;
 * the fused path (``use_pallas=True``; auto-selected for float32 problems
   with n >= 64 on a CUDA device): each sweep is one call of
@@ -95,6 +97,51 @@ def _chol_inverse(M: torch.Tensor) -> torch.Tensor:
     X = torch.linalg.solve_triangular(L.mT, z, upper=True)
     nan = torch.full((), float("nan"), dtype=M.dtype, device=M.device)
     return torch.where((info == 0)[..., None, None], X, nan)
+
+
+def _schur_inverse(M: torch.Tensor, base: int = 32) -> torch.Tensor:
+    """SPD inverse by recursive 2x2 Schur-complement blocks: matrix products
+    above the ``base``-sized leaves, which use :func:`_chol_inverse`.  On
+    near-singular matrices the intermediate Schur complements go indefinite
+    in float32 and the leaves return NaN; see
+    :func:`_shifted_schur_inverse`."""
+    n = M.shape[-1]
+    if n <= base:
+        return _chol_inverse(M)
+    k = min(((n + 1) // 2 + 7) & ~7, n - 1)     # split at a multiple of 8
+    A = M[..., :k, :k]
+    B = M[..., :k, k:]
+    C = M[..., k:, k:]
+    Ai = _schur_inverse(A, base)
+    W = Ai @ B
+    Si = _schur_inverse(C - B.mT @ W, base)
+    WSi = W @ Si
+    top = torch.cat([Ai + WSi @ W.mT, -WSi], dim=-1)
+    bot = torch.cat([-WSi.mT, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _shifted_schur_inverse(M: torch.Tensor, delta: float = 1e-3,
+                           ns: int = 14) -> torch.Tensor:
+    """``inverse="schur"``: the recursive Schur inverse of M + delta I (the
+    shift keeps every intermediate Schur complement positive definite),
+    then ``ns`` Newton-Schulz steps X <- X (2I - M X) that deflate the
+    shift."""
+    I = _eye(M.shape[-1], M)
+    X = _schur_inverse(M + delta * I)
+    for _ in range(ns):
+        X = X @ (2.0 * I - M @ X)
+    return X
+
+
+def _gj_inverse(M: torch.Tensor) -> torch.Tensor:
+    """``inverse="gj"``: ``kernels.spd_inverse``, the Gauss-Jordan kernel
+    with shift and guarded deflation.  On CPU tensors the kernel's plain
+    version runs; there is no Cholesky fallback."""
+    return kernels.spd_inverse(M)
+
+
+_INVERSES = {"schur": _shifted_schur_inverse, "gj": _gj_inverse}
 
 
 def _ns_refresh(X: torch.Tensor, M: torch.Tensor, steps: int = 2):
@@ -229,9 +276,6 @@ def solve(H, q, A, b, G, h, *, iters: int = 25, tol: float = 1e-9,
 
     Masked rows: a disabled equality row is all zero with b = 0; a disabled
     inequality row is all zero with h = 1."""
-    if inverse != "chol":
-        raise NotImplementedError(
-            f"inverse={inverse!r}: only the Cholesky refresh is ported")
     if use_pallas is None:
         use_pallas = _use_pallas_auto(q.dtype, q.shape[-1], q.device)
     Hs, qs, As, bs, Gs, hs, d, e_a, e_g = _equilibrate(H, q, A, b, G, h)
@@ -246,7 +290,7 @@ def solve(H, q, A, b, G, h, *, iters: int = 25, tol: float = 1e-9,
     sol = _solve_impl(Hs, qs, As, bs, Gs, hs, iters=iters, tol=tol, reg=reg,
                       refine_steps=refine_steps, warm=warm_s,
                       exact_every=exact_every, ns_steps=ns_steps,
-                      use_pallas=use_pallas)
+                      use_pallas=use_pallas, inverse=inverse)
     x = d * sol.x
     y = e_a * sol.y
     lam = e_g * sol.lam
@@ -283,7 +327,8 @@ def _residuals(H, q, A, b, G, h, x, y, lam, s, g_active=None):
 
 def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
                 warm=None, exact_every: int = 1, ns_steps: int = 2,
-                use_pallas: bool = False) -> QPSolution:
+                use_pallas: bool = False,
+                inverse: str = "chol") -> QPSolution:
     eps = torch.finfo(q.dtype).eps
     reg = max(reg, 50.0 * eps)
     w_hi = 0.01 / eps
@@ -335,8 +380,11 @@ def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
     one = torch.ones((), dtype=dtype, device=dev)
 
     # Mehrotra start: the equality-constrained QP, then slacks/duals pushed
-    # strictly interior
-    Mi0 = _chol_inverse(H + max(reg, 1e-8) * _eye(n, q))
+    # strictly interior.  ``inverse`` selects the start point's inverse and
+    # the unrolled path's exact refresh; the fused path's exact refresh is
+    # the Cholesky whatever it says, as in the JAX package.
+    inv = _INVERSES.get(inverse, _chol_inverse)
+    Mi0 = inv(H + max(reg, 1e-8) * _eye(n, q))
     S0 = A @ (Mi0 @ A.mT) + max(reg, 1e-7) * _eye(p, q)
     Si0 = _chol_inverse(S0)
     x, y = _kkt_solve(Mi0, A, Si0, -q, b)
@@ -382,7 +430,7 @@ def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
             W = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
             M = H + G.mT @ (G * W[..., None]) + reg * eye_n
             if exact:
-                Mi = _chol_inverse(M)
+                Mi = inv(M)
             else:
                 # a divergent refresh (non-finite) falls back to the stale
                 # finite inverse until the next exact refresh
@@ -456,8 +504,6 @@ def _bwd_impl(opts, H, q, A, b, G, h, x, y, lam, s, gx):
     equilibrated space (W = lam / s), then dL/dtheta = -v^T dg/dtheta."""
     dtype = x.dtype
     reg = dict(opts).get("reg", 1e-8)
-    if dict(opts).get("inverse", "chol") != "chol":
-        raise NotImplementedError("only the Cholesky refresh is ported")
     Hs, _, As, _, Gs, _, d, e_a, e_g = _equilibrate(H, q, A, b, G, h)
     n = x.shape[-1]
     eps = torch.finfo(dtype).eps
@@ -465,7 +511,9 @@ def _bwd_impl(opts, H, q, A, b, G, h, x, y, lam, s, gx):
     W = torch.clamp(lam / s, 100.0 * eps, 0.01 / eps)
     Wt = W / (e_g * e_g)
     M = Hs + Gs.mT @ (Gs * Wt[..., None]) + reg * _eye(n, x)
-    Mi = _chol_inverse(M)
+    inv = {"gj": _gj_inverse}.get(dict(opts).get("inverse", "chol"),
+                                  _chol_inverse)
+    Mi = inv(M)
     p = A.shape[-2]
     S_mat = As @ (Mi @ As.mT) + max(reg, 1e-7) * _eye(p, x)
     Si = _chol_inverse(S_mat)

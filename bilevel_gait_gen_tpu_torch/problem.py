@@ -13,11 +13,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.models import a1, rbd, srb
 from bilevel_gait_gen_tpu_torch.models.srb import SRBParams
 from bilevel_gait_gen_tpu_torch.mpc import gait, solver
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
-from bilevel_gait_gen_tpu.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +43,8 @@ def make_problem(cfg: MPCConfig, batch: int, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
                  stretch: float = 1.0) -> Problem:
     """``stretch`` scales every phase boundary (the mistimed schedules of
-    the bench's A/B grid)."""
+    the bench's A/B grid).  ``device`` defaults to the GPU."""
+    device = resolve_device(device)
     model = a1.make_a1(device=device)
     q0 = torch.tensor(a1.stand_config(), device=device).to(dtype)
     params = srb.make_srb_params(model, q0)

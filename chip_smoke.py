@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Bring-up smoke run of bilevel_gait_gen_tpu_torch on one NVIDIA GPU.
+"""Smoke run of bilevel_gait_gen_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -9,19 +9,34 @@ through ``solver.solve_step`` and ``bilevel.gait_opt_update``, and checks
 it on the way:
 
 1. device: the card, its power limit, torch/CUDA versions, TF32 flags;
-2. build: compiles the CUDA kernels from ``bilevel_gait_gen_tpu_torch/csrc``;
-3. kernels: ``gtwg`` and ``ipm_iter`` on the card against their plain
-   PyTorch versions at the main path's shapes (the gait update's 512 lane
-   problems), with CUDA-event timings;
+2. build: compiles the three CUDA kernels from
+   ``bilevel_gait_gen_tpu_torch/csrc``;
+3. kernels: ``gtwg``, ``ipm_iter`` and ``gj_inverse`` on the card against
+   their plain PyTorch versions at the main path's shapes (the gait update's
+   512 lane problems; the exact refresh's 128 matrices of an RTI and the 512
+   of the lanes' start point), ``spd_inverse`` against the Cholesky inverse
+   by residual, with CUDA-event timings, each kernel's bound on this card
+   and the time of the PyTorch call that computes the same function;
 4. the slice: one warm-up and two timed cadence cycles; every kernel of the
    path must have launched during it;
 5. card against CPU: two scenarios of the same cadence on the card (float32)
    and on the CPU (float64): the embedded RTI's cost within 1%, its QP
    objective and the winning lane's within what float32 allows;
 6. one cadence cycle with ``qp_kernel="pallas"``, every RTI sweep through
-   ``ipm_iter``.
+   ``ipm_iter``;
+7. the second slice: ``solver.create_initial_run`` (10 SQP iterations,
+   every sweep an exact refresh) and then one cadence cycle, with
+   ``ipm_inverse="gj"`` and with ``"chol"`` beside it.  Under ``"gj"`` the
+   outputs must be finite, every kernel must have launched, and the run's
+   one cold interior-point solve (its first SQP iteration) is held to the
+   quality gate; the later iterations and the cadence cycle are outside
+   the Gauss-Jordan inverse's validated range, so their solved fractions
+   are printed beside the Cholesky's and not gated, with what tells where
+   the scenarios are lost: the inverse's residual on every matrix of the
+   run against the Cholesky's, and the run again with the Cholesky at the
+   solves' start points only, then at their sweeps only.
 
-Every phase prints one line.  Any failed check raises, so the script exits
+Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
 line before the last is a JSON summary of the kernels, the last line the
 device record.
@@ -29,6 +44,7 @@ device record.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -45,6 +61,15 @@ TOL_ITER = 1e-3     # iterate max|d| / max|ref| after one float32 sweep
                     # (or 2x the plain version's float32-vs-float64 gap)
 TOL_ITER_CAP = 0.05
 TOL_OBJ = 0.01      # float32 card vs float64 CPU costs
+TOL_GJ = 1e-4       # max|dX| / max|X| of the Gauss-Jordan inverse (or 2x the
+                    # plain version's float32-vs-float64 gap; the panel
+                    # products sum in another order and the matrices are
+                    # conditioned up to ~n / shift)
+TOL_GJ_CAP = 0.25
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# float32 outside the tensor cores, and device-memory bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 DEVICE = "cuda"
 
 
@@ -55,7 +80,7 @@ def check(cond: bool, what: str) -> None:
 
 def bench_config():
     """The configuration of bench.py's cadence (its defaults)."""
-    from bilevel_gait_gen_tpu.utils.config import MPCConfig
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
     return MPCConfig(ipm_iters=10, ipm_exact_every=5, ipm_grad_polish=2,
                      qp_kernel="xla").validate()
 
@@ -75,6 +100,15 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of operations over the
+    float32 peak and bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def rel_err(got, ref) -> float:
@@ -231,13 +265,22 @@ def phase_kernels(cfg):
                                       reg=kw0["reg"]))
     plain = cuda_ms(lambda: kernels.gtwg_reference(
         H, G, torch.clamp(lam / s, 1.0 / w_hi, w_hi), kw0["reg"]))
+    # the one PyTorch call for the same function: baddbmm on the scaled G
+    Wl = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
+    lib_ms = cuda_ms(lambda: torch.baddbmm(H, (G * Wl[..., None]).mT, G))
+    Bl, ml, nl = G.shape
+    gtwg_flops = 2.0 * Bl * nl * nl * ml
+    gtwg_bytes = 4.0 * Bl * (2 * nl * nl + ml * nl + 2 * ml)
+    bnd, by = bound_ms(gtwg_flops, gtwg_bytes)
     print(f"[kernel] gtwg {shape}: max|dM|/max|M| {err:.3e}; ragged "
           f"[{BATCH}, n=232, m=1232]: {err_r:.3e} (<= {TOL_GTWG}); kernel "
-          f"{ms:.3f} ms, plain {plain:.3f} ms")
+          f"{ms:.3f} ms, plain {plain:.3f} ms, baddbmm {lib_ms:.3f} ms, "
+          f"bound {bnd:.3f} ms ({by})")
     rows.append(dict(name="gtwg", route="cuda",
                      source="bilevel_gait_gen_tpu_torch/csrc/gtwg.cu",
                      replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:57",
-                     max_abs_err=max(abs_err, abs_r), ms=ms, plain_ms=plain))
+                     max_abs_err=max(abs_err, abs_r), ms=ms, plain_ms=plain,
+                     bound_ms=bnd, bound_by=by, library_ms=lib_ms))
 
     # ipm_iter: every lane sweep (exact refresh at 0-1, Newton-Schulz at
     # 2-3).  The tolerance: 1e-3 of max|ref|, or twice the plain version's
@@ -269,13 +312,186 @@ def phase_kernels(cfg):
     ms = cuda_ms(lambda: kernels.ipm_iter(*clone_args(args), **kw))
     plain = cuda_ms(lambda: kernels.ipm_iter_reference(*clone_args(args),
                                                        **kw))
+    # one sweep with the Newton-Schulz refresh: M (gtwg), 2 products per NS
+    # step, then the iteration's matrix-vector work (two directions with one
+    # refinement each: ~22 n^2 + 12 m n + 2 p n^2 per problem); it reads H,
+    # G, A, Mi and the vectors once and writes Mi and the vectors
+    pl_ = args[2].shape[-2]
+    it_flops = (gtwg_flops + kw["ns_steps"] * 2 * 2.0 * Bl * nl ** 3
+                + Bl * (22.0 * nl * nl + 12.0 * ml * nl + 2.0 * pl_ * nl * nl))
+    it_bytes = 4.0 * Bl * (3 * nl * nl + ml * nl + pl_ * nl
+                           + 4 * (nl + pl_ + 2 * ml) + 3 * ml)
+    bnd, by = bound_ms(it_flops, it_bytes)
     print(f"[kernel] ipm_iter sweep (do_ns=1) {shape}: kernel chain "
-          f"{ms:.3f} ms, plain {plain:.3f} ms")
+          f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
+          f"no single PyTorch call computes a sweep")
     rows.append(dict(name="ipm_iter", route="cuda",
                      source="bilevel_gait_gen_tpu_torch/csrc/ipm_iter.cu",
                      replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:155",
-                     max_abs_err=worst_abs, ms=ms, plain_ms=plain))
+                     max_abs_err=worst_abs, ms=ms, plain_ms=plain,
+                     bound_ms=bnd, bound_by=by, library_ms=None))
+    rows.append(check_gj_inverse(cfg, qp))
     return rows
+
+
+def with_spd_inverse(wrap, fn) -> None:
+    """Run ``fn`` with ``kernels.spd_inverse`` replaced by ``wrap(spd)``,
+    ``spd`` being the real one; restored after."""
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    spd = kernels.spd_inverse
+    kernels.spd_inverse = wrap(spd)
+    try:
+        fn()
+    finally:
+        kernels.spd_inverse = spd
+
+
+def watch_spd_inverse(fn, on_call) -> None:
+    """Run ``fn`` with ``on_call(M, X)`` called after every
+    ``X = kernels.spd_inverse(M)`` made meanwhile."""
+    def wrap(spd):
+        def watched(M, **kw):
+            X = spd(M, **kw)
+            on_call(M, X)
+            return X
+        return watched
+
+    with_spd_inverse(wrap, fn)
+
+
+def capture_spd_inputs(fn):
+    """Run ``fn`` and return clones of the matrix batches handed to
+    kernels.spd_inverse meanwhile."""
+    spd_in = []
+    watch_spd_inverse(fn, lambda M, X: spd_in.append(M.clone()))
+    return spd_in
+
+
+def gj_input(M, shift: float = 1e-3):
+    """What spd_inverse hands to gj_inverse for M: scaled, padded, shifted."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    Mp, _ = kernels.spd_scale_pad(M)
+    return Mp + shift * torch.eye(Mp.shape[-1], device=M.device)
+
+
+def spd_residuals(M, X=None):
+    """max|M X - I| per matrix for X = spd_inverse(M) (or the X given) and
+    for the Cholesky inverse: (r [B], r_chol [B])."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
+    eye = torch.eye(M.shape[-1], device=M.device)
+    if X is None:
+        X = kernels.spd_inverse(M)
+    r = torch.amax(torch.abs(M @ X - eye), dim=(-2, -1))
+    rc = torch.amax(torch.abs(M @ pdip._chol_inverse(M) - eye), dim=(-2, -1))
+    return r, rc
+
+
+def within_chol_bound(r, rc):
+    """The bound of the JAX package's tests, per matrix:
+    r < 20 * max(r_chol, 1e-6)."""
+    import torch
+    return r < 20.0 * torch.clamp_min(rc, 1e-6)
+
+
+def check_gj_inverse(cfg, lane_qp):
+    """gj_inverse against its plain version (at the kernel's block width) on
+    matrices of the path: a cold RTI solve's start point and exact sweeps at
+    [128, 232 -> 256] and the lanes' start point at [512, 256]; spd_inverse
+    whole against the Cholesky inverse by residual on the cold matrices."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import qp as qp_mod
+    from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    pr = make_problem(cfg, BATCH, device=DEVICE, dtype=torch.float32)
+    rq = qp_mod.assemble(cfg, pr.params, pr.states.traj, pr.x0s, pr.t0,
+                         pr.feets, pr.x_des, pr.states.ee_box)
+    rti_spd = capture_spd_inputs(lambda: pdip.solve(
+        rq.H, rq.q, rq.A, rq.b, rq.G, rq.h, iters=cfg.ipm_iters,
+        tol=cfg.ipm_tol, exact_every=cfg.ipm_exact_every, use_pallas=False,
+        inverse="gj"))
+    n_exact = 1 + sum(i < 2 or i % cfg.ipm_exact_every == 0
+                      for i in range(cfg.ipm_iters))
+    check(len(rti_spd) == n_exact, f"{n_exact} spd_inverse calls per cold "
+          f"RTI solve, got {len(rti_spd)}")
+    rti_in = [gj_input(M) for M in rti_spd]
+    lane_spd = capture_spd_inputs(lambda: pdip.solve(
+        lane_qp.H, lane_qp.q, lane_qp.A, lane_qp.b, lane_qp.G, lane_qp.h,
+        iters=cfg.ls_ipm_iters, tol=cfg.ipm_tol,
+        exact_every=cfg.ls_exact_every, use_pallas=True, inverse="gj"))
+    check(len(lane_spd) == 1, "the fused path inverts only its start point "
+          "through spd_inverse")
+    lane_in = [gj_input(lane_spd[0])]
+
+    w = kernels.GJ_BLOCK
+    worst_abs = 0.0
+    for label, Mk in (("RTI start point", rti_in[0]),
+                      ("RTI sweep 0", rti_in[1]),
+                      (f"RTI sweep {cfg.ipm_exact_every}", rti_in[-1]),
+                      ("lane start point", lane_in[0])):
+        before = kernels.gj_inverse.launches
+        X = kernels.gj_inverse(Mk)
+        torch.cuda.synchronize()
+        check(kernels.gj_inverse.launches == before + 1, "one launch counted")
+        ref = kernels.gj_inverse_reference(Mk, w=w)
+        r64 = kernels.gj_inverse_reference(Mk.double(), w=w).float()
+        e, e64 = rel_err(X, ref), rel_err(ref, r64)
+        tol = max(TOL_GJ, min(2.0 * e64, TOL_GJ_CAP))
+        eye = torch.eye(Mk.shape[-1], device=Mk.device)
+        res_k = float(torch.amax(torch.abs(Mk @ X - eye)))
+        res_p = float(torch.amax(torch.abs(Mk @ ref - eye)))
+        check(bool(torch.isfinite(X).all()), f"gj_inverse {label}: finite")
+        check(e <= tol, f"gj_inverse {label}: rel {e:.3e} > {tol:.3e}")
+        check(res_k <= 3.0 * res_p + 1e-5,
+              f"gj_inverse {label}: residual {res_k:.3e} vs plain {res_p:.3e}")
+        worst_abs = max(worst_abs, float(torch.amax(torch.abs(X - ref))))
+        print(f"[kernel] gj_inverse {label} {list(Mk.shape)} w={w}: "
+              f"max|dX|/max|X| {e:.3e} (<= {tol:.3e}; plain f32 vs f64 "
+              f"{e64:.3e}); residual max|MX-I| kernel {res_k:.3e}, plain "
+              f"{res_p:.3e}")
+
+    # spd_inverse whole on the cold matrices, by residual, with the bound of
+    # the JAX package's tests: r < 20 * max(r_chol, 1e-6) per matrix
+    for label, M in (("start point", rti_spd[0]), ("sweep 0", rti_spd[1])):
+        r, rc = spd_residuals(M)
+        ok = within_chol_bound(r, rc)
+        print(f"[kernel] spd_inverse cold RTI {label} {list(M.shape)}: "
+              f"residual max {float(r.max()):.3e}, median "
+              f"{float(r.median()):.3e} (Cholesky max {float(rc.max()):.3e}, "
+              f"median {float(rc.median()):.3e}); {int(ok.sum())} of "
+              f"{ok.numel()} within 20 x max(Cholesky, 1e-6)")
+        check(bool(ok.all()), f"spd_inverse {label} residual bound")
+
+    # times at the RTI shape (and the kernel at the lanes' too)
+    Mk, M = rti_in[1], rti_spd[1]
+    ms = cuda_ms(lambda: kernels.gj_inverse(Mk))
+    ms_lane = cuda_ms(lambda: kernels.gj_inverse(lane_in[0]))
+    plain = cuda_ms(lambda: kernels.gj_inverse_reference(Mk, w=w), reps=3,
+                    warm=1)
+    spd_ms = cuda_ms(lambda: kernels.spd_inverse(M))
+    spd_nodefl = cuda_ms(lambda: kernels.spd_inverse(M, deflate=0))
+    chol_ms = cuda_ms(lambda: pdip._chol_inverse(M))
+    cholinv_ms = cuda_ms(lambda: torch.cholesky_inverse(
+        torch.linalg.cholesky_ex(M).L))
+    inv_ms = cuda_ms(lambda: torch.linalg.inv(Mk))
+    Bk, nk = Mk.shape[0], Mk.shape[-1]
+    bnd, by = bound_ms(2.0 * Bk * nk ** 3, 4.0 * Bk * 2 * nk * nk)
+    print(f"[kernel] gj_inverse [{Bk}, {nk}, {nk}]: kernel {ms:.3f} ms "
+          f"([{lane_in[0].shape[0]}, {nk}, {nk}]: {ms_lane:.3f} ms), plain "
+          f"{plain:.3f} ms, torch.linalg.inv {inv_ms:.3f} ms, bound "
+          f"{bnd:.4f} ms ({by}; the kernel's real limit is its chain of "
+          f"{nk} dependent pivot steps); spd_inverse whole at "
+          f"{list(M.shape)} {spd_ms:.3f} ms, of which deflation "
+          f"{spd_ms - spd_nodefl:.3f} ms; pdip._chol_inverse {chol_ms:.3f} ms"
+          f", cholesky_ex + cholesky_inverse {cholinv_ms:.3f} ms")
+    return dict(name="gj_inverse", route="cuda",
+                source="bilevel_gait_gen_tpu_torch/csrc/gj_inverse.cu",
+                replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:456",
+                max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=inv_ms, ms_lane_start=ms_lane,
+                spd_inverse_ms=spd_ms, spd_deflation_ms=spd_ms - spd_nodefl,
+                chol_inverse_ms=chol_ms)
 
 
 def run_cadence(cfg, pr, cycles):
@@ -330,6 +546,8 @@ def phase_slice(cfg):
     st, secs, solved, gres = run_cadence(cfg, pr, cycles=3)
     launches = {"gtwg": kernels.gtwg.launches,
                 "ipm_iter": kernels.ipm_iter.launches}
+    check(kernels.gj_inverse.launches == 0,
+          'ipm_inverse="chol" never reaches gj_inverse')
     timed = secs[1:]
     cyc = float(np.mean(timed))
     frac = solved_fraction(solved[1:], gres[1:])
@@ -408,7 +626,153 @@ def phase_rti_kernel(cfg):
           f"call): {secs[0] * 1e3:.1f} ms, solved_frac {frac:.4f}")
 
 
+def initial_run(cfg, pr):
+    """``solver.create_initial_run`` on the problem, with the solved flags of
+    each of its SQP iterations recorded on the way (a recording stand-in for
+    ``solver.solve_step`` for the duration).  Returns (state, last stats,
+    seconds, solved fraction per iteration)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import solver
+    step = solver.solve_step
+    flags = []
+
+    def rec_step(*args, **kw):
+        out = step(*args, **kw)
+        flags.append(out[1].solved)
+        return out
+
+    solver.solve_step = rec_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, stats = solver.create_initial_run(cfg, pr.params, pr.states,
+                                              pr.x0s, pr.feets, pr.x_des,
+                                              pr.t0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        solver.solve_step = step
+    return st, stats, secs, [float(f.float().mean()) for f in flags]
+
+
+def phase_cold_start_gj(cfg):
+    """The second slice: create_initial_run, then one cadence cycle, with
+    ``ipm_inverse="gj"``; the same under "chol" beside it.
+
+    Gated under "gj": finite outputs, launches of every kernel, and the
+    quality gate (solved fraction >= 0.95) of the first SQP iteration, the
+    one cold interior-point solve of the run.  The JAX package validates its
+    Gauss-Jordan inverse on cold matrices only and says that warm-started
+    solves fail their gate under it, so the solved fractions of the later
+    iterations and of the cadence cycle are printed beside the Cholesky's,
+    not gated.  What tells where the scenarios are lost is printed too: the
+    inverse's residual against the Cholesky's on every matrix of the run, by
+    iteration, and the run with the Cholesky at the start point of every
+    solve only, then at the sweeps only.  Returns the launch counts of the
+    "gj" path."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    out = {}
+    for inv in ("chol", "gj"):
+        cfg_i = dataclasses.replace(cfg, ipm_inverse=inv)
+        pr = make_problem(cfg_i, BATCH, device=DEVICE, dtype=torch.float32)
+        kernels.reset_launch_counts()
+        st, stats, init_s, fracs = initial_run(cfg_i, pr)
+        init_gj = kernels.gj_inverse.launches
+        st2, secs, solved, gres = run_cadence(
+            cfg_i, dataclasses.replace(pr, states=st), cycles=1)
+        launches = {"gtwg": kernels.gtwg.launches,
+                    "ipm_iter": kernels.ipm_iter.launches,
+                    "gj_inverse": kernels.gj_inverse.launches}
+        init_finite = all(bool(torch.isfinite(t).all()) for t in (
+            st.traj.x_man, st.traj.f_nodes, st.traj.footholds, stats.cost))
+        out[inv] = dict(init_frac=float(stats.solved.float().mean()),
+                        fracs=fracs, init_s=init_s, init_gj=init_gj,
+                        init_cost=float(stats.cost[stats.solved].median()),
+                        cyc_frac=solved_fraction(solved, gres),
+                        cyc_s=secs[0], launches=launches,
+                        finite=init_finite and all_finite(st2, gres))
+        check(len(fracs) == cfg.init_run_iters, "one solve_step per SQP "
+              "iteration of the initial run")
+        check(tuple(st.traj.x_man.shape) == (BATCH, cfg.num_nodes + 1, 13),
+              "trajectory shape after the initial run")
+    for inv, r in out.items():
+        print(f"[cold-start] ipm_inverse={inv!r} batch {BATCH}: "
+              f"create_initial_run ({cfg.init_run_iters} SQP iterations) "
+              f"{r['init_s'] * 1e3:.1f} ms, solved_frac by iteration "
+              f"{[round(f, 4) for f in r['fracs']]}, median cost of the "
+              f"solved {r['init_cost']:.4f}, gj_inverse launches "
+              f"{r['init_gj']}; then 1 cadence cycle {r['cyc_s'] * 1e3:.1f} "
+              f"ms, solved_frac {r['cyc_frac']:.4f}; all finite "
+              f"{r['finite']}; launches {r['launches']}")
+
+    # where the Gauss-Jordan refresh loses the Cholesky's residual: the same
+    # run once more, every spd_inverse result of every sweep held against the
+    # Cholesky inverse of the same matrices, by SQP iteration
+    per_it = 1 + cfg.ipm_iters
+    cfg_gj = dataclasses.replace(cfg, ipm_inverse="gj")
+    pr = make_problem(cfg_gj, BATCH, device=DEVICE, dtype=torch.float32)
+    trace = []
+    fracs = []
+    watch_spd_inverse(
+        lambda: fracs.extend(initial_run(cfg_gj, pr)[3]),
+        lambda M, X: trace.append(spd_residuals(M, X)))
+    check(len(trace) == cfg.init_run_iters * per_it, "every sweep of the "
+          "initial run is an exact refresh through spd_inverse")
+    for it in range(cfg.init_run_iters):
+        r, rc = (torch.stack(t) for t in
+                 zip(*trace[it * per_it:(it + 1) * per_it]))    # [11, B]
+        both = torch.isfinite(r) & torch.isfinite(rc)
+        bad = both & ~within_chol_bound(r, rc)
+        print(f"[cold-start] iteration {it} under 'gj', {per_it} spd_inverse "
+              f"calls x {BATCH} scenarios: solved_frac {fracs[it]:.4f}; "
+              f"residual max {float(r[both].max()):.3e}, median "
+              f"{float(r[both].median()):.3e} (Cholesky max "
+              f"{float(rc[both].max()):.3e}, median "
+              f"{float(rc[both].median()):.3e}); outside 20 x max(Cholesky, "
+              f"1e-6): {int(bad.sum())} of {int(both.sum())} matrices, in "
+              f"{int(bad.any(0).sum())} scenarios; not finite: spd_inverse "
+              f"{int((~torch.isfinite(r)).sum())}, Cholesky "
+              f"{int((~torch.isfinite(rc)).sum())}")
+
+    # which of the two uses loses the scenarios: the run again with the
+    # Cholesky inverse in place of spd_inverse at the Mehrotra start point of
+    # every solve (call 0 of each iteration), then at its sweeps instead
+    for label, use_chol in (
+            ("the start point of every solve (Gauss-Jordan at the sweeps)",
+             lambda k: k % per_it == 0),
+            ("every sweep (Gauss-Jordan at the start point)",
+             lambda k: k % per_it != 0)):
+        calls = itertools.count()
+        mixed = []
+        with_spd_inverse(
+            lambda spd: lambda M, **kw: (
+                pdip._chol_inverse(M) if use_chol(next(calls))
+                else spd(M, **kw)),
+            lambda: mixed.extend(initial_run(cfg_gj, pr)[3]))
+        print(f"[cold-start] 'gj' with the Cholesky inverse at {label}: "
+              f"solved_frac by iteration {[round(f, 4) for f in mixed]}")
+
+    gj = out["gj"]
+    check(out["chol"]["launches"]["gj_inverse"] == 0,
+          '"chol" never reaches gj_inverse')
+    check(gj["init_gj"] == len(trace), "one gj_inverse launch per exact "
+          "refresh of the initial run")
+    check(gj["finite"], 'every output finite under ipm_inverse="gj"')
+    check(out["chol"]["init_frac"] >= 0.95,
+          f'cold start under "chol": solved_frac '
+          f'{out["chol"]["init_frac"]:.4f} >= 0.95')
+    check(gj["fracs"][0] >= 0.95,
+          f'cold solve under "gj": solved_frac {gj["fracs"][0]:.4f} >= 0.95 '
+          f'("chol": {out["chol"]["fracs"][0]:.4f})')
+    for name, n in gj["launches"].items():
+        check(n > 0, f'{name} launched on the "gj" path')
+    return gj["launches"]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
     import torch
     if not torch.cuda.is_available():
@@ -422,8 +786,16 @@ def main() -> int:
     launches, _, _ = phase_slice(cfg)
     phase_card_vs_cpu(cfg)
     phase_rti_kernel(cfg)
+    gj_launches = phase_cold_start_gj(cfg)
+    # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
+    # gj_inverse from the cold start + cycle under "gj" (phase 7); both
+    # paths' counts are kept beside them
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        name = row["name"]
+        row["launches"] = launches.get(name, gj_launches[name])
+        row["launches_by_path"] = {"chol_cadence": launches.get(name, 0),
+                                   "gj_cold_start": gj_launches[name]}
+    print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

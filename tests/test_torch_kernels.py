@@ -155,6 +155,126 @@ def test_ipm_iter_reference_matches_pallas_interpret(do_ns):
                                    atol=1e-4 * np.abs(Mi_ref).max())
 
 
+def _spd_batch(seed, B, n, dtype=np.float32, ridge=0.1):
+    rng = np.random.default_rng(seed)
+    L = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    return (L @ np.swapaxes(L, -1, -2) + ridge * np.eye(n)).astype(dtype)
+
+
+@pytest.mark.parametrize("B,n", [(3, 128), (2, 256)])
+def test_gj_inverse_reference_matches_pallas_interpret(B, n):
+    """The plain blocked Gauss-Jordan (w=128, the Pallas kernel's width)
+    against the Pallas kernel in interpret mode, float32: the same
+    arithmetic with the panel products summed in another order, held to
+    1e-4 of max|X| elementwise (condition number ~40)."""
+    M = _spd_batch(20, B, n)
+    ref = np.asarray(pk.gj_inverse(jnp.asarray(M), interpret=True))
+    got = kernels.gj_inverse_reference(torch.tensor(M), w=128).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
+    eye = np.eye(n, dtype=np.float32)
+    assert np.abs(M @ got - eye).max() < 1e-4
+
+
+@pytest.mark.parametrize("w", [32, 128, 64])
+def test_gj_inverse_reference_block_widths_agree(w):
+    """The block width changes rounding, not the function: every width
+    (and the scalar form, which w=64 selects at n=160) inverts to a float64
+    residual of 1e-11."""
+    M = torch.tensor(_spd_batch(21, 2, 160 if w == 64 else 256, np.float64))
+    X = kernels.gj_inverse_reference(M, w=w)
+    eye = torch.eye(M.shape[-1], dtype=torch.float64)
+    assert float((M @ X - eye).abs().max()) < 1e-11
+
+
+def test_gj_inverse_floors_a_zero_pivot_and_goes_on():
+    """|p| < 1e-30 becomes 1e-30, without a rescue: the result is huge but
+    the elimination finishes, as in the Pallas kernel."""
+    M = np.diag([2.0, 0.0, 4.0]).astype(np.float64)
+    got = kernels.gj_inverse_reference(torch.tensor(M)[None])[0].numpy()
+    ref = np.asarray(pk.gj_inverse(jnp.asarray(M), interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-12)
+    assert got[1, 1] > 9e29 and got[0, 0] == 0.5
+
+
+def test_spd_inverse_f64_matches_pallas_and_is_exact():
+    """n=160 (padded to 256 inside), float64: both packages reach a 1e-9
+    residual (tests/test_pallas_kernels.py::test_spd_inverse_f64_exact) and
+    agree to 1e-9 of max|X|."""
+    M = _spd_batch(9, 1, 160, np.float64, ridge=0.05)[0]
+    ref = np.asarray(pk.spd_inverse(jnp.asarray(M), interpret=True))
+    got = kernels.spd_inverse(torch.tensor(M)).numpy()
+    eye = np.eye(160)
+    assert np.abs(M @ got - eye).max() < 1e-9
+    assert np.abs(M @ ref - eye).max() < 1e-9
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-9 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("wexp", [0.0, 1.0, 3.0, 4.0])
+def test_spd_inverse_ipm_spectrum_matches_pallas(wexp):
+    """The W-dominated matrices of
+    tests/test_pallas_kernels.py::test_spd_inverse_ipm_spectrum_interpret
+    (n=232, m=400, float32): the port's spd_inverse is finite and meets that
+    test's residual bound r < 20 max(r_chol, 1e-6), and its residual is
+    within a factor 3 of the Pallas spd_inverse's in interpret mode (both
+    keep the best of ten guarded deflation steps; the iterates themselves
+    differ by the conditioning times float32 rounding)."""
+    from bilevel_gait_gen_tpu_torch.ops import pdip
+    rng = np.random.default_rng(7)
+    n, m = 232, 400
+    Gm = (rng.normal(size=(m, n)) / np.sqrt(n)).astype(np.float32)
+    w = (10.0 ** rng.uniform(-wexp, wexp, m)).astype(np.float32)
+    eye = np.eye(n, dtype=np.float32)
+    M = eye + (Gm.T * w[None, :]) @ Gm + 1e-5 * eye
+    got = kernels.spd_inverse(torch.tensor(M)).numpy()
+    ref = np.asarray(pk.spd_inverse(jnp.asarray(M), interpret=True))
+    Xc = pdip._chol_inverse(torch.tensor(M)).numpy()
+    r, rj, rc = (np.abs(M @ X - eye).max() for X in (got, ref, Xc))
+    assert np.isfinite(got).all()
+    assert r < 20 * max(rc, 1e-6), (r, rc)
+    assert r < 3 * rj + 1e-6, (r, rj)
+
+
+def test_gj_wrappers_on_cpu_run_the_plain_version_without_cholesky():
+    """On CPU tensors gj_inverse is gj_inverse_reference (no Cholesky
+    fallback: an indefinite matrix, which the Cholesky marks NaN, is
+    inverted), nothing is launched, and spd_inverse keeps shift and deflate
+    as keywords."""
+    M = torch.tensor(np.diag([1.0, -2.0, 4.0, 0.5]).astype(np.float32))[None]
+    before = kernels.gj_inverse.launches
+    X = kernels.gj_inverse(M)
+    np.testing.assert_array_equal(
+        X.numpy(), kernels.gj_inverse_reference(M).numpy())
+    np.testing.assert_allclose(torch.diagonal(X[0]).numpy(),
+                               [1.0, -0.5, 0.25, 2.0])
+    S = torch.tensor(_spd_batch(22, 2, 24))
+    raw = kernels.spd_inverse(S, shift=0.0, deflate=0)
+    np.testing.assert_allclose(raw.numpy(), torch.linalg.inv(S).numpy(),
+                               rtol=1e-4, atol=1e-5)
+    shifted = kernels.spd_inverse(S, shift=1e-1, deflate=0)
+    assert float((shifted - raw).abs().max()) > 1e-3
+    assert kernels.gj_inverse.launches == before
+    with pytest.raises(ValueError, match="square"):
+        kernels.gj_inverse(torch.zeros(2, 3, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 232])
+def test_gj_inverse_kernel_matches_reference_on_card(card, n):
+    """Blocked form (n=256) and scalar form (n=232) on the card against the
+    plain version at the kernel's block width, 1e-4 of max|X|."""
+    M = torch.tensor(_spd_batch(23, 4, n), device=card)
+    before = kernels.gj_inverse.launches
+    X = kernels.gj_inverse(M)
+    torch.cuda.synchronize()
+    assert kernels.gj_inverse.launches == before + 1
+    ref = kernels.gj_inverse_reference(M, w=kernels.GJ_BLOCK)
+    assert float((X - ref).abs().max() / ref.abs().max()) <= 1e-4
+    with pytest.raises(ValueError, match="float32"):
+        kernels.gj_inverse(M.double())
+
+
 @pytest.mark.cuda
 def test_gtwg_kernel_matches_reference_on_card(card):
     H, G, W = (torch.tensor(a, device=card) for a in _gtwg_data(5))
@@ -206,7 +326,7 @@ def host_lib(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     parts = [(kernels.CSRC / "common.cuh").read_text().replace(
         "#include <cuda_runtime.h>", '#include "host_emulation.h"')]
-    for name in ("gtwg.cu", "ipm_iter.cu"):
+    for name in ("gtwg.cu", "ipm_iter.cu", "gj_inverse.cu"):
         src = (kernels.CSRC / name).read_text()
         src = src.replace('#include "common.cuh"', "")
         src = re.sub(r"([\w:]+)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ",
@@ -297,3 +417,30 @@ def test_ipm_iter_source_on_host_matches_reference(host_card, do_ns):
         assert float((g_ - r_).abs().max() / r_.abs().max()) <= 1e-4
     assert torch.equal(got[4], ref[4]) and torch.equal(got[5], ref[5])
     assert float((got[7] - ref[7]).abs().max() / ref[7].abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n", [64, 96, 40])
+def test_gj_inverse_source_on_host_matches_reference(host_card, n):
+    """csrc/gj_inverse.cu through ops/kernels.py::gj_inverse: the blocked
+    form (n=64, 96: two and three 32-wide blocks) and the scalar form
+    (n=40) against the plain version at the kernel's block width.  The
+    scalar elimination rounds product and difference separately on both
+    sides; the panel products sum in another order: 1e-5 of max|X|."""
+    M = torch.tensor(_spd_batch(24, 2, n, ridge=1.0))
+    before = kernels.gj_inverse.launches
+    X = kernels.gj_inverse(M)
+    assert kernels.gj_inverse.launches == before + 1
+    ref = kernels.gj_inverse_reference(M, w=kernels.GJ_BLOCK)
+    assert float((X - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert float((M @ X - torch.eye(n)).abs().max()) < 1e-4
+    assert host_card.bggt_gj_block_width() == kernels.GJ_BLOCK
+
+
+def test_spd_inverse_through_host_kernel(host_card):
+    """spd_inverse whole with the host-compiled kernel inside (n=40 padded
+    to 128): residual 1e-4 in float32."""
+    M = torch.tensor(_spd_batch(25, 2, 40))
+    before = kernels.gj_inverse.launches
+    X = kernels.spd_inverse(M)
+    assert kernels.gj_inverse.launches == before + 1
+    assert float((M @ X - torch.eye(40)).abs().max()) < 1e-4

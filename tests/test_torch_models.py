@@ -92,7 +92,7 @@ def _configs(k=4):
 
 
 def test_make_a1_matches_jax_model():
-    model = a1.make_a1()
+    model = a1.make_a1(device="cpu")
     jm = ja1.make_a1()
     assert model.parent == jm.parent and model.ee_link == jm.ee_link
     assert model.hip_link == jm.hip_link
@@ -112,21 +112,21 @@ def test_rbd_kinematics(fn):
     q = _configs()
     ref = jax.vmap(lambda qq: getattr(jrbd, fn)(ja1.make_a1(), qq))(
         jnp.asarray(q))
-    close(getattr(rbd, fn)(a1.make_a1(), t(q)), ref)
+    close(getattr(rbd, fn)(a1.make_a1(device="cpu"), t(q)), ref)
 
 
 def test_rbd_fk_links():
     q = _configs()
     Rj, pj = jax.vmap(lambda qq: jrbd.fk_links(ja1.make_a1(), qq))(
         jnp.asarray(q))
-    R, p = rbd.fk_links(a1.make_a1(), t(q))
+    R, p = rbd.fk_links(a1.make_a1(device="cpu"), t(q))
     close(R, Rj)
     close(p, pj)
 
 
 def test_a1_hip_offsets_and_inertia():
     q0 = t(a1.stand_config())
-    params = srb.make_srb_params(a1.make_a1(), q0)
+    params = srb.make_srb_params(a1.make_a1(device="cpu"), q0)
     off = params.hip_offset_raw.numpy()
     np.testing.assert_allclose(np.abs(off[:, 0]), [0.1805] * 4, atol=0.03)
     assert np.all(np.abs(params.hip_offset[:, 1].numpy()) > 0.14)
@@ -137,7 +137,7 @@ def test_a1_hip_offsets_and_inertia():
 def test_srb_params_and_state():
     q0 = ja1.stand_config().astype(np.float64)
     jp = jsrb.make_srb_params(ja1.make_a1(), jnp.asarray(q0))
-    p = srb.make_srb_params(a1.make_a1(), t(q0))
+    p = srb.make_srb_params(a1.make_a1(device="cpu"), t(q0))
     for name in ("mass", "inertia", "inertia_inv", "hip_offset",
                  "com_offset", "hip_offset_raw"):
         close(getattr(p, name), getattr(jp, name))
@@ -172,8 +172,57 @@ def test_srb_dynamics_and_step(integrator):
         jp, xt, fn, fh, bounds, tt, cfg.dt, cfg))(jnp.asarray(times))
     dyn = jax.vmap(lambda tt: jsrb.dynamics(jp, xt, fn, fh, bounds, tt, cfg))(
         jnp.asarray(times))
-    p = convert.from_srb_params(jp)
+    p = convert.from_srb_params(jp, device="cpu")
     args = (t(np.tile(np.asarray(xt), (len(times), 1))), t(fn), t(fh),
             t(bounds), t(times))
     close(srb.dynamics(p, *args, cfg), dyn)
     close(srb.discrete_step(p, *args, cfg.dt, cfg), ref)
+
+
+@pytest.mark.parametrize("carrier", [False, True])
+def test_srb_linearize_matches_jax(carrier):
+    """(A, B, C) of the continuous dynamics by forward-mode autodiff on both
+    sides, five node times at once in the port (batch first) against one
+    JAX call per time; also one unbatched call.  rtol 1e-9 on the scale of
+    each array's largest entry."""
+    from bilevel_gait_gen_tpu.mpc.trajectory import (make_unravel as jmk,
+                                                     ravel_u as jravel)
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import make_unravel, ravel_u
+    cfg = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
+                    samples_per_stance=4, ee_node_start=1, dt=0.05,
+                    force_carrier=carrier).validate()
+    q0 = jnp.asarray(ja1.stand_config(), jnp.float64)
+    jp = jsrb.make_srb_params(ja1.make_a1(), q0)
+    x0 = jsrb.reconstruct_state(jp, q0, jnp.zeros(18))
+    feet = jrbd.ee_positions(ja1.make_a1(), q0)
+    traj = default_trajectory(cfg, jgait.make_trot(cfg), x0, feet[:, :2])
+    rng = np.random.default_rng(7)
+    fn = jnp.asarray(rng.standard_normal(traj.f_nodes.shape))
+    fh = traj.footholds + 0.02 * rng.standard_normal(traj.footholds.shape)
+    xt = jsrb.manifold_to_tangent(x0) + 0.05 * rng.standard_normal(12)
+    times = np.array([0.0, 0.12, 0.25, 0.5, 0.77])
+    bounds = traj.sched.bounds
+    u = jravel(fn, fh)
+    ref = jax.vmap(lambda tt: jsrb.linearize(jp, xt, fn, fh, jmk(cfg), u,
+                                             bounds, tt, cfg))(
+        jnp.asarray(times))
+    p = convert.from_srb_params(jp, device="cpu")
+    T = len(times)
+
+    def rep(a):
+        a = t(a)
+        return a.expand(T, *a.shape)
+
+    u_t = ravel_u(t(fn), t(fh))
+    np.testing.assert_array_equal(u_t.numpy(), np.asarray(u))
+    got = srb.linearize(p, rep(xt), rep(fn), rep(fh), make_unravel(cfg),
+                        rep(u), rep(bounds), t(times), cfg)
+    one = srb.linearize(p, t(xt), t(fn), t(fh), make_unravel(cfg), u_t,
+                        t(bounds), t(times)[2], cfg)
+    for g, o, r in zip(got, one, ref):
+        r = np.asarray(r)
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-9 * np.abs(r).max())
+        np.testing.assert_allclose(o.numpy(), r[2], rtol=0,
+                                   atol=1e-9 * np.abs(r).max())

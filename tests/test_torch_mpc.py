@@ -144,7 +144,7 @@ def test_spline_gradients_wrt_bounds_match_jax_at_ties():
 
 def test_make_trot_window_shift_and_rolls():
     for cfg in (CFG, MPCConfig(double_support=0.05).validate()):
-        close(gait.make_trot(cfg, dtype=F64).bounds, jgait.make_trot(cfg).bounds)
+        close(gait.make_trot(cfg, dtype=F64, device="cpu").bounds, jgait.make_trot(cfg).bounds)
     b = _bounds(5)[:4]
     rng = np.random.default_rng(6)
     S = CFG.num_stance_slots
@@ -185,12 +185,12 @@ def _jax_problem(stretch=1.0):
 
 def test_default_trajectory_and_ravel():
     params, x0, feet0, traj = _jax_problem()
-    model = a1.make_a1()
+    model = a1.make_a1(device="cpu")
     q0 = t(a1.stand_config())
     x0_t = srb.reconstruct_state(srb.make_srb_params(model, q0), q0,
                                  torch.zeros(model.nv, dtype=F64))
     feet_t = rbd.ee_positions(model, q0)
-    tr = default_trajectory(CFG, gait.make_trot(CFG, dtype=F64), x0_t[None],
+    tr = default_trajectory(CFG, gait.make_trot(CFG, dtype=F64, device="cpu"), x0_t[None],
                             feet_t[None, :, :2])
     close(tr.x_man[0], traj.x_man)
     close(tr.f_nodes[0], traj.f_nodes)
@@ -221,8 +221,8 @@ def _assemble_pair(cfg, traj, params, x0, feet0, t0, box=None):
                        box)
     b1 = jax.tree.map(lambda a: a[None], (traj, x0, feet0, x_des, box))
     tr, x0_t, feet_t, xd_t, box_t = b1
-    got = qp.assemble(cfg, convert.from_srb_params(params),
-                      convert.from_trajectory(tr), t(x0_t),
+    got = qp.assemble(cfg, convert.from_srb_params(params, device="cpu"),
+                      convert.from_trajectory(tr, device="cpu"), t(x0_t),
                       t([t0]), t(feet_t), t(xd_t), t(box_t))
     return got, ref
 
@@ -235,17 +235,31 @@ def _close_scaled(got, ref, rtol=1e-9):
 
 
 @pytest.mark.parametrize("case", ["initial", "perturbed", "shifted",
-                                  "stretched_box", "carrier", "rk2"])
+                                  "stretched_box", "carrier", "rk2",
+                                  "raibert", "raibert_axes"])
 def test_assemble_matches_jax(case):
+    """"raibert": the Raibert touchdown rows (cfg.raibert) with a scalar
+    velocity gain at t0 = 0.17, where one touchdown is claimed by the TD pin
+    and masked; "raibert_axes": per-axis gain and hip scale."""
     cfg = {"carrier": MPCConfig(force_carrier=True).validate(),
-           "rk2": MPCConfig(integrator="rk2").validate()}.get(case, CFG)
+           "rk2": MPCConfig(integrator="rk2").validate(),
+           "raibert": MPCConfig(raibert=True,
+                                raibert_vel_gain=0.8).validate(),
+           "raibert_axes": MPCConfig(
+               raibert=True, raibert_vel_gain=(0.5, 1.5),
+               raibert_hip_scale=(1.0, 0.8)).validate()}.get(case, CFG)
     params, x0, feet0, traj = _jax_problem(
         stretch=1.2 if case == "stretched_box" else 1.0)
     if case != "initial":
         traj = _perturbed(traj, 8)
-    t0 = 0.17 if case == "shifted" else 0.0
+    t0 = 0.17 if case in ("shifted", "raibert") else 0.0
     box = (0.2, 0.12) if case == "stretched_box" else None
     got, ref = _assemble_pair(cfg, traj, params, x0, feet0, t0, box)
+    if cfg.raibert:
+        rows = np.abs(convert.to_numpy(got.A[0])).sum(-1) > 0
+        assert got.A.shape[-2] == 4 * cfg.num_ee + cfg.num_ee * (
+            cfg.num_phase_slots // 2 + 1) * 2
+        assert rows[4 * cfg.num_ee:].any()      # some Raibert row is active
     for name in ("H", "q", "A", "b", "G", "h", "S", "c"):
         _close_scaled(getattr(got, name)[0], getattr(ref, name))
     _close_scaled(got.cost_const[0], ref.cost_const)
@@ -271,12 +285,12 @@ def test_assemble_gradient_wrt_bounds_matches_jax():
                 + jnp.sum(q_.A @ uu - q_.b) + q_.cost_const)
 
     gj = jax.grad(jobj)(traj.sched.bounds)
-    tr_t = convert.from_trajectory(jax.tree.map(lambda a: a[None], traj))
+    tr_t = convert.from_trajectory(jax.tree.map(lambda a: a[None], traj), device="cpu")
     bounds = tr_t.sched.bounds.clone().requires_grad_(True)
     tr_t = type(tr_t)(x_man=tr_t.x_man, f_nodes=tr_t.f_nodes,
                       footholds=tr_t.footholds,
                       sched=gait.GaitSchedule(bounds=bounds))
-    q_ = qp.assemble(CFG, convert.from_srb_params(params), tr_t,
+    q_ = qp.assemble(CFG, convert.from_srb_params(params, device="cpu"), tr_t,
                      t(x0)[None], t([t0]), t(feet0)[None], t(x_des)[None],
                      t(box)[None])
     uu = t(u)[None]
@@ -303,3 +317,99 @@ def test_recover_states_and_cost_value():
     cj = jqp.cost_value(CFG, xs_j, jnp.asarray(u), x_des)
     c = qp.cost_value(CFG, xs, t(u)[None], t(x_des)[None])
     close(c[0], cj, rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the closed-loop schedule helpers and the standing schedule
+# ---------------------------------------------------------------------------
+
+def test_make_standing_matches_jax():
+    for cfg in (CFG, SMALL):
+        close(gait.make_standing(cfg, 0.4, dtype=F64, device="cpu").bounds,
+              jgait.make_standing(cfg, 0.4).bounds)
+
+
+@pytest.mark.parametrize("t_now", [0.05, 0.26, 0.31, 0.58, 0.9])
+def test_contact_adjust_and_flight_hold_match_jax(t_now):
+    """set_ee_in_contact, adjust_for_current_contacts and hold_for_flight,
+    batch first (three schedules, each with its own measured contacts)
+    against one JAX call per schedule; exact in float64 (selections and one
+    addition)."""
+    rows = _bounds(13)
+    scheds = np.stack([rows[:4], rows[4:8], rows[[0, 5, 2, 7]]])
+    measured = np.array([[True, True, False, True],
+                         [False, False, False, False],
+                         [True, False, True, True]])
+    mask = np.array([[True, False, True, False],
+                     [False, True, True, True],
+                     [True, True, True, True]])
+    ts = gait.GaitSchedule(bounds=t(scheds))
+    tt = t([t_now] * 3)
+    got_set = gait.set_ee_in_contact(ts, torch.tensor(mask), tt).bounds
+    got_adj = gait.adjust_for_current_contacts(ts, torch.tensor(measured),
+                                               tt).bounds
+    got_hold = gait.hold_for_flight(ts, torch.tensor(measured), 0.03).bounds
+    for k in range(3):
+        js = JSched(bounds=jnp.asarray(scheds[k]))
+        tj = jnp.asarray(t_now)
+        np.testing.assert_array_equal(
+            got_set[k].numpy(),
+            np.asarray(jgait.set_ee_in_contact(js, jnp.asarray(mask[k]),
+                                               tj).bounds))
+        np.testing.assert_array_equal(
+            got_adj[k].numpy(),
+            np.asarray(jgait.adjust_for_current_contacts(
+                js, jnp.asarray(measured[k]), tj).bounds))
+        np.testing.assert_array_equal(
+            got_hold[k].numpy(),
+            np.asarray(jgait.hold_for_flight(js, jnp.asarray(measured[k]),
+                                             0.03).bounds))
+        assert (np.diff(got_set[k].numpy(), axis=-1) >= 0).all()
+    one = gait.set_ee_in_contact(gait.GaitSchedule(bounds=t(scheds[0])),
+                                 torch.tensor(mask[0]), t(t_now)).bounds
+    np.testing.assert_array_equal(one.numpy(), got_set[0].numpy())
+
+
+# ---------------------------------------------------------------------------
+# assemble_ad, the autodiff oracle of assemble
+# ---------------------------------------------------------------------------
+
+SMALL = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
+                  samples_per_stance=4, ee_node_start=1, dt=0.05).validate()
+
+
+@pytest.mark.parametrize("case", ["plain", "carrier", "raibert"])
+def test_assemble_ad_is_assemble_in_both_packages(case):
+    """The QP built by autodiff of the spline and dynamics functions equals
+    the closed-form build, in the port as in the JAX package, and the two
+    autodiff builds equal each other; small configuration, perturbed
+    trajectory, t0 = 0.13; the port on two scenarios (the second with
+    another x0), the JAX package on the first.
+    1e-9 of each array's largest entry."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        SMALL, force_carrier=case == "carrier", raibert=case == "raibert",
+        raibert_vel_gain=0.6 if case == "raibert" else 0.0).validate()
+    model = ja1.make_a1()
+    q0 = jnp.asarray(ja1.stand_config(), jnp.float64)
+    params = jsrb.make_srb_params(model, q0)
+    x0 = jsrb.reconstruct_state(params, q0, jnp.zeros(model.nv))
+    feet0 = jrbd.ee_positions(model, q0)
+    traj = _perturbed(jdeft(cfg, jgait.make_trot(cfg), x0, feet0[:, :2]), 14)
+    x_des = jsrb.manifold_to_tangent(x0)
+    box = jnp.asarray(cfg.ee_box_size, jnp.float64)
+    x0b = x0.at[0].add(0.02).at[7].add(0.1)
+    t0 = 0.13
+    a = (cfg, params, traj, x0, jnp.asarray(t0), feet0, x_des, box)
+    jad, jcf = jqp.assemble_ad(*a), jqp.assemble(*a)
+    tr = convert.from_trajectory(
+        jax.tree.map(lambda a: jnp.stack([a, a]), traj), device="cpu")
+    args = (cfg, convert.from_srb_params(params, device="cpu"), tr,
+            t(np.stack([x0, x0b])), t([t0, t0]), t(np.stack([feet0] * 2)),
+            t(np.stack([x_des] * 2)), t(np.stack([box] * 2)))
+    ad, cf = qp.assemble_ad(*args), qp.assemble(*args)
+    for name in ("H", "q", "A", "b", "G", "h", "S", "c", "cost_const"):
+        for k in range(2):
+            _close_scaled(getattr(ad, name)[k], getattr(cf, name)[k].numpy())
+        _close_scaled(getattr(jad, name), getattr(jcf, name))
+        _close_scaled(getattr(ad, name)[0], getattr(jad, name))

@@ -1,7 +1,9 @@
 """The PyTorch port as a package: no JAX import, the JAX <-> port converter
 round trip, and the float32 precision policy."""
+import dataclasses
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,10 +35,36 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "chip_smoke",
 ])
 def test_port_never_imports_jax(module):
+    """Importing the port loads neither jax nor the JAX package."""
     code = (f"import {module}, sys; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'bilevel_gait_gen_tpu')); assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def _port_sources():
+    root = Path(__file__).resolve().parent.parent
+    return sorted((root / "bilevel_gait_gen_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(p.parents[1]))
+                         if p.name != "chip_smoke.py" else p.name)
+def test_port_source_names_no_jax_import(path):
+    """No import statement of any port source (function-level ones
+    included) names jax or the JAX package; the package name followed by
+    ``_torch`` is the port's own."""
+    import ast
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in (
+                "jax", "jaxlib", "bilevel_gait_gen_tpu"), (path.name, name)
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -44,7 +72,6 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
     """Without CUDA (and, alone, without the package beside it) the smoke
     script exits non-zero and prints no result line."""
     import shutil
-    from pathlib import Path
     script = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     if alone:
         shutil.copy(script, tmp_path / "chip_smoke.py")
@@ -79,16 +106,16 @@ def _assert_same(port_np, jax_obj, names):
 def test_convert_round_trip():
     """Every converted object gives back the JAX arrays bit for bit."""
     model, params, state, x0, feet0 = _jax_state()
-    m = convert.from_robot_model(model)
+    m = convert.from_robot_model(model, device="cpu")
     assert m.parent == model.parent and m.ee_link == model.ee_link
     assert m.mass.dtype == torch.float32
     _assert_same(convert.to_numpy(m), model,
                  ["joint_trans", "joint_axis", "mass", "com", "inertia",
                   "ee_offset", "joint_lower", "joint_upper"])
-    _assert_same(convert.to_numpy(convert.from_srb_params(params)), params,
+    _assert_same(convert.to_numpy(convert.from_srb_params(params, device="cpu")), params,
                  ["mass", "inertia", "inertia_inv", "hip_offset",
                   "com_offset", "hip_offset_raw"])
-    st = convert.from_solver_state(state)
+    st = convert.from_solver_state(state, device="cpu")
     st_np = convert.to_numpy(st)
     _assert_same(st_np.traj, state.traj, ["x_man", "f_nodes", "footholds"])
     _assert_same(st_np.traj.sched, state.traj.sched, ["bounds"])
@@ -100,19 +127,19 @@ def test_convert_round_trip():
     x_des = jsrb.manifold_to_tangent(x0)
     qp = jqp.assemble(CFG, params, state.traj, x0, jnp.asarray(0.0), feet0,
                       x_des, state.ee_box)
-    _assert_same(convert.to_numpy(convert.from_condensed_qp(qp)), qp,
+    _assert_same(convert.to_numpy(convert.from_condensed_qp(qp, device="cpu")), qp,
                  ["H", "q", "A", "b", "G", "h", "S", "c", "cost_const"])
     sol = jpdip.solve(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h, iters=3)
-    _assert_same(convert.to_numpy(convert.from_qp_solution(sol)), sol,
+    _assert_same(convert.to_numpy(convert.from_qp_solution(sol, device="cpu")), sol,
                  ["x", "y", "lam", "s", "iters", "gap", "pri_res", "dua_res"])
 
 
 def test_convert_float32_on_request():
     _, params, state, _, _ = _jax_state()
-    st = convert.from_solver_state(state, dtype=torch.float32)
+    st = convert.from_solver_state(state, dtype=torch.float32, device="cpu")
     assert st.traj.x_man.dtype == torch.float32
     assert st.qp_warm.iters.dtype == torch.int32
-    p = convert.from_srb_params(params, dtype=torch.float32)
+    p = convert.from_srb_params(params, dtype=torch.float32, device="cpu")
     assert p.inertia.dtype == torch.float32
 
 
@@ -144,5 +171,103 @@ def test_kernel_sources_are_hashed_and_nothing_is_built_on_import():
     """The build key covers every source; importing built nothing."""
     assert len(kernels.source_hash()) == 16
     assert kernels._lib is None
-    for name in ("common.cuh", "gtwg.cu", "ipm_iter.cu"):
+    for name in ("common.cuh", "gtwg.cu", "ipm_iter.cu", "gj_inverse.cu"):
         assert (kernels.CSRC / name).is_file()
+        assert name in kernels._SOURCES
+
+
+# ---------------------------------------------------------------------------
+# the port's own MPCConfig and the device default
+# ---------------------------------------------------------------------------
+
+def test_config_copy_has_the_same_fields_defaults_and_properties():
+    """The port's MPCConfig cannot drift from the JAX package's unnoticed:
+    same field names in the same order, same defaults, same derived
+    properties, the same validate() verdicts."""
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig as PortCfg
+    jf, pf = dataclasses.fields(MPCConfig), dataclasses.fields(PortCfg)
+    assert [f.name for f in pf] == [f.name for f in jf]
+    for a, b in zip(pf, jf):
+        assert a.default == b.default, a.name
+    for kw in ({}, dict(num_nodes=6, num_phase_slots=4, phase_duration=0.5),
+               dict(num_force_polys=4, num_ee=2, num_phase_slots=9)):
+        jc, pc = MPCConfig(**kw), PortCfg(**kw)
+        for prop in ("horizon", "num_stance_slots", "num_footholds",
+                     "num_force_vars", "num_pos_vars", "num_u"):
+            assert getattr(pc, prop) == getattr(jc, prop), prop
+    for kw in (dict(ls_alphas=1), dict(num_phase_slots=3),
+               dict(double_support=0.3), dict(q_diag=(1.0,) * 11)):
+        with pytest.raises(AssertionError):
+            MPCConfig(**kw).validate()
+        with pytest.raises(AssertionError):
+            PortCfg(**kw).validate()
+    assert hash(PortCfg()) == hash(PortCfg())
+
+
+def test_from_config_round_trips_every_field():
+    """convert.from_config copies field by field: a JAX-package config with
+    every field moved off its default comes back equal."""
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig as PortCfg
+
+    def moved(f):
+        v = f.default
+        if isinstance(v, bool):
+            return not v
+        if isinstance(v, int):
+            return v + 2
+        if isinstance(v, float):
+            return v * 1.5 + 0.25
+        if isinstance(v, str):
+            return v + "_x"
+        return tuple(x * 2.0 + 1.0 for x in v)
+
+    changed = {f.name: moved(f) for f in dataclasses.fields(MPCConfig)}
+    jc = MPCConfig(**changed)
+    pc = convert.from_config(jc)
+    assert type(pc) is PortCfg
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc) == changed
+    assert dataclasses.asdict(convert.from_config(CFG)) == \
+        dataclasses.asdict(CFG)
+    assert convert.from_config(CFG).num_u == CFG.num_u
+
+
+def _entry_points():
+    from bilevel_gait_gen_tpu_torch.models import a1
+    from bilevel_gait_gen_tpu_torch.mpc import bilevel, gait
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig as PortCfg
+    cfg = PortCfg().validate()
+    f64 = torch.float64
+    return {
+        "make_problem": lambda **k: make_problem(cfg, 2, **k).x0s,
+        "make_a1": lambda **k: a1.make_a1(**k).mass,
+        "make_trot": lambda **k: gait.make_trot(cfg, dtype=f64, **k).bounds,
+        "make_standing": lambda **k: gait.make_standing(cfg, dtype=f64,
+                                                        **k).bounds,
+        "init_curvature": lambda **k: bilevel.init_curvature(cfg, 2, **k).B,
+        "convert.tensor": lambda **k: convert.tensor(np.zeros(3), **k),
+        "convert.from_srb_params": lambda **k: convert.from_srb_params(
+            _jax_state()[1], **k).mass,
+    }
+
+
+@pytest.mark.parametrize("name", ["make_problem", "make_a1", "make_trot",
+                                  "make_standing", "init_curvature",
+                                  "convert.tensor",
+                                  "convert.from_srb_params"])
+def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
+    """device=None means the CUDA device: without one the entry point
+    raises and says so (nothing carries on on the CPU unasked); with
+    device="cpu" it builds CPU tensors."""
+    import bilevel_gait_gen_tpu_torch as port
+    fn = _entry_points()[name]
+    assert fn(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert fn().device.type == "cuda"
+        assert port.default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            port.default_device()
+    assert port.resolve_device("cpu") == torch.device("cpu")

@@ -140,7 +140,7 @@ def test_solve_primal_backward_matches_jax_vjp_at_same_point():
     qps = [_random_qp(6), _random_qp(7, masked=True)]
     jsols = _jax_solves(qps, iters=20, tol=1e-10)
     warm = convert.from_qp_solution(
-        jax.tree.map(lambda *a: jnp.stack(a), *jsols))
+        jax.tree.map(lambda *a: jnp.stack(a), *jsols), device="cpu")
     gx = np.random.default_rng(8).standard_normal((2, 40))
     grads, jgrads = _vjp_pair(qps, (("iters", 0),), gx, warm, jsols)
     for k in range(2):
@@ -240,7 +240,7 @@ def test_fused_lane_cadence_stalls_on_ns_sweeps_like_pallas(interpret_mode):
     cfg = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
                     samples_per_stance=4, ee_node_start=1, ipm_iters=10,
                     max_ls_iters=4, dt=0.05).validate()
-    pr = make_problem(cfg, 1, dtype=torch.float32)
+    pr = make_problem(cfg, 1, dtype=torch.float32, device="cpu")
     st, _ = solver.solve_step(cfg, pr.params, pr.states, pr.x0s, pr.t0,
                               pr.feets, pr.x_des)
     qp = qp_mod.assemble(cfg, pr.params, st.traj, pr.x0s, pr.t0, pr.feets,
@@ -258,3 +258,101 @@ def test_fused_lane_cadence_stalls_on_ns_sweeps_like_pallas(interpret_mode):
         np.testing.assert_allclose(float(getattr(four, f)[0]),
                                    float(getattr(jfour, f)), rtol=1e-3,
                                    err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# inverse="gj" and "schur".  The JAX "gj" runs its Pallas kernel only with
+# pk.INTERPRET set (off the TPU it otherwise silently runs the Cholesky, and
+# the comparison would be vacuous); on CPU tensors the port runs the
+# kernel's plain version at the same block width.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    dict(iters=12, tol=1e-9),
+    dict(iters=8, exact_every=3),
+], ids=["every_sweep_exact", "ns_cadence"])
+@pytest.mark.parametrize("inverse", ["gj", "schur"])
+def test_solve_with_shifted_inverses_matches_jax(interpret_mode, inverse, kw):
+    """float64, unrolled path: start point and every exact refresh through
+    the named inverse on both sides.  Both deflate a 1e-3 shift with
+    Newton-Schulz steps down to ~1e-13 residuals, so the sweeps agree as
+    they do under the Cholesky: rtol 1e-6, atol 1e-9.  Against the
+    Cholesky solve itself only to 1e-3: on the last sweeps W = lam / s
+    spans more decades than ten deflation steps can take the shift out
+    of."""
+    qps = [_random_qp(12), _random_qp(13, masked=True)]
+    sol = pdip.solve(*_batch(qps), inverse=inverse, **kw)
+    _compare(sol, _jax_solves(qps, inverse=inverse, **kw), RTOL64, ATOL64)
+    chol = pdip.solve(*_batch(qps), **kw)
+    np.testing.assert_allclose(sol.x.numpy(), chol.x.numpy(), rtol=0,
+                               atol=1e-3)
+
+
+def test_gj_solve_reaches_the_gj_kernel_wrapper(monkeypatch):
+    """Which inverses go through kernels.spd_inverse: the start point and
+    every exact refresh of the unrolled path (sweeps 0, 1 and 5 of ten at
+    exact_every=5), the start point alone on the fused path (its exact
+    refresh is the Cholesky whatever ``inverse`` says, as in the JAX
+    package), and none under "chol"."""
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    calls = []
+    spd = kernels.spd_inverse
+    monkeypatch.setattr(kernels, "spd_inverse",
+                        lambda M, **k: calls.append(M.shape) or spd(M, **k))
+    args = _batch([_random_qp(14, dtype=np.float32)])
+    pdip.solve(*args, iters=10, tol=0.0, exact_every=5, inverse="gj",
+               use_pallas=False)
+    assert len(calls) == 4
+    calls.clear()
+    pdip.solve(*args, iters=4, tol=0.0, exact_every=5, inverse="gj",
+               use_pallas=True)
+    assert [tuple(c) for c in calls] == [(1, 128, 128)]
+    calls.clear()
+    pdip.solve(*args, iters=4, tol=0.0, exact_every=5, use_pallas=False)
+    assert calls == []
+
+
+def test_fused_path_with_gj_start_matches_pallas_interpret(interpret_mode):
+    """float32 fused path under inverse="gj" (the Gauss-Jordan start point,
+    Cholesky exact refreshes) against the JAX package in interpret mode, at
+    the fused path's own tolerance."""
+    qps = [_random_qp(0, dtype=np.float32), _random_qp(1, dtype=np.float32)]
+    sol = pdip.solve(*_batch(qps), iters=20, tol=1e-7, use_pallas=True,
+                     inverse="gj")
+    jsols = _jax_solves(qps, iters=20, tol=1e-7, use_pallas=True,
+                        inverse="gj")
+    for k, js in enumerate(jsols):
+        assert float(sol.gap[k]) < 1e-5 and float(sol.pri_res[k]) < 1e-4
+        np.testing.assert_allclose(sol.x[k].numpy(), np.asarray(js.x),
+                                   rtol=RTOL32, atol=ATOL32)
+
+
+def test_gj_adjoint_matches_jax_grad(interpret_mode):
+    """The IFT adjoint with its matrix inverted by the Gauss-Jordan path,
+    float64.  At the same solution (iters=0) against JAX's custom VJP: rtol
+    1e-6, as under the Cholesky; end to end (12 sweeps under "gj", then the
+    adjoint) against jax.grad of the same scalar: 1e-3 of the largest
+    entry, the bound of the Cholesky end-to-end test above."""
+    qps = [_random_qp(6), _random_qp(7, masked=True)]
+    gx = np.random.default_rng(8).standard_normal((2, 40))
+    jsols = _jax_solves(qps, iters=20, tol=1e-10)
+    warm = convert.from_qp_solution(
+        jax.tree.map(lambda *a: jnp.stack(a), *jsols), device="cpu")
+    opts = (("iters", 0), ("inverse", "gj"))
+    grads, jgrads = _vjp_pair(qps, opts, gx, warm, jsols)
+    for k in range(2):
+        for name, g, gj in zip("HqAbGh", grads, jgrads[k]):
+            np.testing.assert_allclose(g[k].numpy(), np.asarray(gj),
+                                       rtol=1e-6, atol=1e-9, err_msg=name)
+    opts = (("iters", 12), ("tol", 1e-9), ("inverse", "gj"))
+    args = [a.clone().requires_grad_(True) for a in _batch(qps)]
+    x = pdip.solve_primal(*args, opts, None)
+    grads = torch.autograd.grad((x * torch.tensor(gx)).sum(), args)
+    for k, qp in enumerate(qps):
+        jg = jax.grad(lambda *a: jnp.sum(jpdip.solve_primal(*a, opts, None)
+                                         * jnp.asarray(gx[k])),
+                      argnums=tuple(range(6)))(*map(jnp.asarray, qp))
+        for name, g, gj in zip("HqAbGh", grads, jg):
+            gj = np.asarray(gj)
+            err = np.abs(g[k].numpy() - gj).max() / np.abs(gj).max()
+            assert err < 1e-3, (name, k, err)
