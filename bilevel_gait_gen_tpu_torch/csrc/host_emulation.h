@@ -8,8 +8,11 @@
 // the warp; dynamic shared memory is poisoned with NaN before each block.
 // The test rewrites `kernel<<<grid, block, smem, stream>>>(args)` into
 // `emu_launch(kernel, grid, block, smem, stream, args)` and
-// `extern __shared__ float smem[];` into `float* smem = emu_dyn;` before it
-// compiles.  Not a model of timing or of the memory model: a check of the
+// `extern __shared__ __align__(16) float smem[];` into
+// `float* smem = emu_dyn;` before it compiles.  cp.async copies are
+// synchronous here (cp_async_commit and cp_async_wait do nothing), so a
+// missing wait shows only on the card; a missing barrier before a stage is
+// overwritten does show.  Not a model of timing or of the memory model: a check of the
 // arithmetic, indexing and barrier structure only.
 #pragma once
 #include <algorithm>
@@ -20,6 +23,8 @@
 #include <memory>
 #include <thread>
 #include <vector>
+
+#define BGGT_HOST_EMULATION 1
 
 using std::isfinite;
 using std::min;
@@ -41,9 +46,16 @@ inline const char* cudaGetErrorString(cudaError_t) { return "host emulation"; }
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline std::barrier<>* emu_block_barrier = nullptr;
@@ -78,11 +90,20 @@ inline float __int_as_float(int i) {
   return f;
 }
 
+inline void cp_async_16(float* smem_dst, const float* gmem_src) {
+  std::memcpy(smem_dst, gmem_src, 16);
+}
+inline void cp_async_commit() {}
+template <int kPending>
+inline void cp_async_wait() {}
+
 template <class... KA, class... A>
 void emu_launch(void (*kernel)(KA...), dim3 grid, dim3 block, size_t smem,
                 cudaStream_t, A... args) {
   const int nt = block.x * block.y * block.z;
-  std::vector<float> dyn(smem / 4 + 1);
+  std::vector<float4> dyn4(smem / 16 + 1);
+  float* dyn = &dyn4[0].x;
+  const size_t dyn_n = 4 * dyn4.size();
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
@@ -92,8 +113,8 @@ void emu_launch(void (*kernel)(KA...), dim3 grid, dim3 block, size_t smem,
         emu_shuffle.assign(nt / 32, std::vector<float>(32));
         for (int w = 0; w < nt / 32; ++w)
           emu_warp_barriers.emplace_back(new std::barrier<>(32));
-        std::fill(dyn.begin(), dyn.end(), __int_as_float(0x7fc00000));
-        emu_dyn = dyn.data();
+        std::fill(dyn, dyn + dyn_n, __int_as_float(0x7fc00000));
+        emu_dyn = dyn;
         std::vector<std::thread> threads;
         for (int t = 0; t < nt; ++t)
           threads.emplace_back([&, t] {

@@ -9,18 +9,40 @@
 // so the sweep is a chain on the caller's stream, driven by the wrapper
 // ops/kernels.py::ipm_iter: gtwg.cu forms M (with W = clip(lam / s)), the
 // GEMM of gtwg.cu applies the Newton-Schulz refresh when asked, and this
-// kernel runs the rest of the iteration.
+// kernel runs the rest of the iteration.  n and m are multiples of 128
+// there (the caller pads), so rows move as 16-byte pieces.
 //
-// Bound: per problem and sweep the kernel streams G five times, Mi four
-// times and M, H once each (~9 MB at n = 256, m = 1280), against ~3 MFLOP,
-// so it is bound by memory traffic, most of it served from L2.  The simple
-// design: vectors of length n, m and p live in shared memory, matrices are
-// read from global memory by whole warps on consecutive addresses, the
-// p x p Schur complement is factorized by one warp, and every reduction
-// is a fixed-order block reduction.  The math and its order of operations
-// follow _iteration_math line by line, including where-selects (never a
-// 0/1 multiply) and the absence of a non-finite guard on the Newton-Schulz
-// refresh, which the TPU kernel also lacks.
+// Bound: device-memory traffic.  Per problem and sweep the kernel streams G
+// five times, Mi nine times, M twice and H once (~9 MB at n = 256,
+// m = 1280) against ~3 MFLOP, and at 512 problems neither G (671 MB) nor M,
+// Mi and H (134 MB each) stay in the 50 MB L2.  What the design does about
+// it:
+//  * vectors of length n, m and p live in shared memory (~107 KB at the
+//    main path's shape); matrices are streamed from global memory and
+//    never staged;
+//  * two blocks of 512 threads on an SM: the launch bounds hold the kernel
+//    to 64 registers a thread (512 threads at 128 registers take the whole
+//    register file, and one block alone leaves the memory idle while it
+//    factorizes or reduces), so one block's serial stretches run under the
+//    other's passes;
+//  * a matrix pass keeps kRows rows (2 KB) of every warp in flight, so an
+//    SM has ~64 KB of loads outstanding (row-wise products with 4-byte
+//    loads in the plain version's order of summation, see mv_rows; the
+//    column-wise ones and the pass below with 16-byte loads);
+//  * A Mi for the Schur complement takes four rows of Mi a step against
+//    16-byte loads of A from shared memory: one shared load for four FFMA;
+//  * the residuals' G^T lam and G x share one pass over G (each row: a dot
+//    with x and an update of the column sums), five passes a sweep instead
+//    of six; the predictor's and the corrector's passes depend on each
+//    other and stay apart;
+//  * the p x p Schur complement is factorized by one warp, and every
+//    reduction has a fixed order (shuffle trees within a warp, partial sums
+//    combined in index order), so a result does not change from run to run.
+// The math and its order of operations follow _iteration_math line by line
+// (only the order inside a row's dot product is the kernel's own),
+// including where-selects (never a 0/1 multiply) and the absence of a
+// non-finite guard on the Newton-Schulz refresh, which the TPU kernel also
+// lacks.
 #include "common.cuh"
 
 namespace bggt {
@@ -28,6 +50,8 @@ namespace bggt {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxP = 32;
+constexpr int kRows = 2;     // rows a warp keeps in flight in a matrix pass
+constexpr int kSuper = 256;  // columns a lane covers with two 16-byte loads
 
 struct IpmArgs {
   const float *H, *q, *A, *b, *G, *h, *ga, *M, *Mi;
@@ -41,20 +65,30 @@ struct IpmArgs {
   float eps;        // float32 machine epsilon
 };
 
-// Shared-memory layout of one problem (floats).
+// Shared-memory layout of one problem (floats).  Everything up to and
+// including `scratch` starts on a 16-byte boundary (n and m are multiples
+// of 128, the p-vectors are padded to multiples of 4).
 struct Vecs {
   float *x, *q, *rd, *r1, *dx, *e1, *t1, *t2, *dxc, *cx;            // n
   float *lam, *s, *h, *ga, *W, *rg, *rhs, *dsa, *dla, *ds, *dl, *tm;  // m
   float *y, *b, *rp, *r2, *dy, *e2, *tp, *cy, *dyc;                 // p
-  float *A, *AMi;                                                    // p*n
+  float *A;                                                          // p*n
+  // partial sums of the matrix passes; A Mi lives here while the Schur
+  // complement is formed, before the first of those passes
+  float *scratch, *AMi;                             // max(p*n, kWarps*kSuper)
   float *S, *U, *X, *Si;                                             // p*p
-  float *scratch;                                                    // kThreads
-  float *red;                                                        // 32
+  float *red;                                                        // 64
 };
 
+inline size_t scratch_floats(int n, int p) {
+  const size_t a = (size_t)p * n, b = (size_t)kWarps * kSuper;
+  return a > b ? a : b;
+}
+
 inline size_t smem_floats(int n, int m, int p) {
-  return (size_t)10 * n + 12 * (size_t)m + 9 * (size_t)p +
-         2 * (size_t)p * n + 4 * (size_t)p * p + kThreads + 32;
+  const size_t pp = (size_t)(p + 3) / 4 * 4;
+  return (size_t)10 * n + 12 * (size_t)m + 9 * pp + (size_t)p * n +
+         scratch_floats(n, p) + 4 * (size_t)p * p + 64;
 }
 
 __device__ inline Vecs carve(float* base, int n, int m, int p) {
@@ -68,14 +102,15 @@ __device__ inline Vecs carve(float* base, int n, int m, int p) {
   for (float** f : mv) { *f = c; c += m; }
   float** pv[] = {&v.y, &v.b, &v.rp, &v.r2, &v.dy, &v.e2, &v.tp, &v.cy,
                   &v.dyc};
-  for (float** f : pv) { *f = c; c += p; }
+  for (float** f : pv) { *f = c; c += (p + 3) / 4 * 4; }
   v.A = c; c += (size_t)p * n;
-  v.AMi = c; c += (size_t)p * n;
+  v.scratch = v.AMi = c;
+  c += (size_t)p * n > (size_t)kWarps * kSuper ? (size_t)p * n
+                                               : (size_t)kWarps * kSuper;
   v.S = c; c += p * p;
   v.U = c; c += p * p;
   v.X = c; c += p * p;
   v.Si = c; c += p * p;
-  v.scratch = c; c += kThreads;
   v.red = c;
   return v;
 }
@@ -147,87 +182,173 @@ __device__ inline float all_finite(const float* v, int len, float* red) {
 
 // ---- matrix-vector products (all threads call; output visible on return) -
 
-// out[r] = sum_c Mat[r * C + c] * v[c], r < R: one warp per row
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z);
+  y.w = fmaf(a, x.w, y.w);
+}
+
+// out[r] = sum_c Mat[r * C + c] * v[c], r < R.  A warp takes kRows rows at a
+// time; a lane sums the columns lane, lane + 32, ... of each in order (4
+// bytes a load, a warp on 128 consecutive bytes), the loads of all kRows
+// rows started ahead of the arithmetic, then a shuffle tree.  16-byte loads
+// were tried and were no faster on the card, and they change the order of
+// the sum: this one is the order of the plain version's matrix-vector
+// products on the card, which keeps the ill-conditioned cold sweeps as
+// close to the plain version as float32 allows.
 __device__ void mv_rows(const float* Mat, int R, int C, const float* v,
                         float* out) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int r = warp; r < R; r += kWarps) {
-    const float* row = Mat + (size_t)r * C;
-    float acc = 0.f;
-    for (int c = lane; c < C; c += 32) acc = fmaf(row[c], v[c], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[r] = acc;
+  for (int r0 = warp * kRows; r0 < R; r0 += kWarps * kRows) {
+    float acc[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
+#pragma unroll 8
+    for (int c = lane; c < C; c += 32) {
+      const float xv = v[c];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (r0 + j < R)
+          acc[j] = fmaf(Mat[(size_t)(r0 + j) * C + c], xv, acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float d = warp_sum(acc[j]);
+      if (lane == 0 && r0 + j < R) out[r0 + j] = d;
+    }
   }
   __syncthreads();
 }
 
-// out[c] = sum_r v[r] * Mat[r * C + c], c < C: lanes on consecutive columns,
-// rows split over the spare warps, partials combined in part order
+// out[c] = sum_r v[r] * Mat[r * C + c], c < C, C a multiple of 128 and at
+// most 128 * kWarps: a warp covers 128 columns (16 bytes a lane), the rows
+// are dealt round robin to the warps of a column group, and the partial
+// sums are combined in part order.  scratch: kWarps * 128 floats.
 __device__ void vtm(const float* v, const float* Mat, int R, int C,
                     float* out, float* scratch) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nstrips = (C + 31) / 32;
-  if (nstrips >= kWarps) {
-    for (int st = warp; st < nstrips; st += kWarps) {
-      const int c = st * 32 + lane;
-      if (c < C) {
-        float acc = 0.f;
-        for (int r = 0; r < R; ++r) acc = fmaf(v[r], Mat[(size_t)r * C + c], acc);
-        out[c] = acc;
-      }
-    }
-    __syncthreads();
-    return;
-  }
-  const int wps = kWarps / nstrips;
-  if (warp < nstrips * wps) {
-    const int st = warp % nstrips, part = warp / nstrips;
-    const int c = st * 32 + lane;
-    if (c < C) {
-      float acc = 0.f;
-      for (int r = part; r < R; r += wps)
-        acc = fmaf(v[r], Mat[(size_t)r * C + c], acc);
-      scratch[part * C + c] = acc;
-    }
+  const int groups = C / 128, parts = kWarps / groups;
+  if (warp < groups * parts) {
+    const int part = warp / groups;
+    const int c = (warp % groups) * 128 + lane * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int r = part; r < R; r += parts)
+      axpy4(v[r], ld4(Mat + (size_t)r * C + c), acc);
+    st4(scratch + part * C + c, acc);
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += kThreads) {
     float acc = scratch[c];
-    for (int part = 1; part < wps; ++part) acc += scratch[part * C + c];
+    for (int part = 1; part < parts; ++part) acc += scratch[part * C + c];
     out[c] = acc;
   }
   __syncthreads();
 }
 
-// AMi[i * n + c] = sum_k A[i * n + k] * Mi[k * n + c]: one pass over Mi,
-// p accumulators per lane
+// One pass over G [m, n] for both residual products: gx[r] = G[r, :] . x
+// and gtl[c] = sum_r lam[r] G[r, c].  A warp takes kRows rows at a time and
+// up to kSuper columns (two 16-byte loads a lane) of each; the column sums
+// are kept per warp over its rows in order and combined in warp order.
+// n a multiple of 128; scratch: kWarps * kSuper floats.
+__device__ void g_residual_pass(const float* G, int m, int n, const float* x,
+                                const float* lam, float* gx, float* gtl,
+                                float* scratch) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int cs = 0; cs < n; cs += kSuper) {
+    const int c0 = cs + lane * 4, c1 = c0 + 128;
+    const bool two = cs + 128 < n;
+    const float4 x0 = ld4(x + c0);
+    const float4 x1 = two ? ld4(x + c1) : zero;
+    float4 s0 = zero, s1 = zero;
+    for (int r0 = warp * kRows; r0 < m; r0 += kWarps * kRows) {
+      float4 g0[kRows], g1[kRows];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const bool in = r0 + j < m;
+        const float* row = G + (size_t)(r0 + j) * n;
+        g0[j] = in ? ld4(row + c0) : zero;
+        g1[j] = in && two ? ld4(row + c1) : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const bool in = r0 + j < m;
+        const float d = warp_sum(dot4(g1[j], x1, dot4(g0[j], x0, 0.f)));
+        if (lane == 0 && in) gx[r0 + j] = cs == 0 ? d : gx[r0 + j] + d;
+        const float l = in ? lam[r0 + j] : 0.f;
+        axpy4(l, g0[j], s0);
+        axpy4(l, g1[j], s1);
+      }
+    }
+    st4(scratch + warp * kSuper + lane * 4, s0);
+    st4(scratch + warp * kSuper + 128 + lane * 4, s1);
+    __syncthreads();
+    const int width = n - cs < kSuper ? n - cs : kSuper;
+    for (int c = threadIdx.x; c < width; c += kThreads) {
+      float acc = scratch[c];
+      for (int w = 1; w < kWarps; ++w) acc += scratch[w * kSuper + c];
+      gtl[cs + c] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+// AMi[i * n + c] = sum_k A[i * n + k] * Mi[k * n + c], i < p <= kP: one pass
+// over Mi, a lane per column with kP accumulators, four rows of Mi a step
+// against 16-byte loads of A from shared memory (one load of A for four
+// FFMA).  Where the 32-column strips are fewer than the warps, the rows of
+// Mi are split into contiguous parts over the spare warps and the parts'
+// sums are added in part order.  n a multiple of 128.
+template <int kP>
 __device__ void a_times_mi(const float* A, const float* Mi, int p, int n,
                            float* AMi) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nstrips = (n + 31) / 32;
+  const int nstrips = n / 32;
   const int wps = nstrips >= kWarps ? 1 : kWarps / nstrips;
-  const int nparts_warps = nstrips >= kWarps ? kWarps : nstrips * wps;
-  for (int pp = 0; pp < wps; ++pp) {
-    if (warp < nparts_warps && warp / nstrips == pp) {
-      for (int st = warp % nstrips; st < nstrips; st += (wps == 1 ? kWarps : nstrips)) {
-        const int c = st * 32 + lane;
-        float acc[kMaxP];
+  const int per_round = wps == 1 ? kWarps : nstrips;   // strips per round
+  const int klen = n / wps;
+  for (int base = 0; base < nstrips; base += per_round) {
+    const int st = base + warp % per_round, part = warp / per_round;
+    const int c = st * 32 + lane;
+    const bool active = part < wps && st < nstrips;
+    float acc[kP];
 #pragma unroll
-        for (int i = 0; i < kMaxP; ++i) acc[i] = 0.f;
-        if (c < n) {
-          for (int k = pp; k < n; k += wps) {
-            const float mik = Mi[(size_t)k * n + c];
+    for (int i = 0; i < kP; ++i) acc[i] = 0.f;
+    if (active) {
+#pragma unroll 2
+      for (int k = part * klen; k < (part + 1) * klen; k += 4) {
+        float mi[4];
 #pragma unroll
-            for (int i = 0; i < kMaxP; ++i)
-              if (i < p) acc[i] = fmaf(A[i * n + k], mik, acc[i]);
+        for (int t = 0; t < 4; ++t) mi[t] = Mi[(size_t)(k + t) * n + c];
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          if (i < p) {
+            const float4 a4 = ld4(A + i * n + k);
+            acc[i] = fmaf(a4.x, mi[0], acc[i]);
+            acc[i] = fmaf(a4.y, mi[1], acc[i]);
+            acc[i] = fmaf(a4.z, mi[2], acc[i]);
+            acc[i] = fmaf(a4.w, mi[3], acc[i]);
           }
-#pragma unroll
-          for (int i = 0; i < kMaxP; ++i)
-            if (i < p) AMi[i * n + c] = pp == 0 ? acc[i] : AMi[i * n + c] + acc[i];
         }
       }
     }
-    __syncthreads();
+    for (int turn = 0; turn < wps; ++turn) {
+      if (active && part == turn) {
+#pragma unroll
+        for (int i = 0; i < kP; ++i)
+          if (i < p)
+            AMi[i * n + c] = turn == 0 ? acc[i] : AMi[i * n + c] + acc[i];
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -318,7 +439,7 @@ __device__ void solve_dir(const IpmArgs& a, const float* G, const float* M,
     for (int i = threadIdx.x; i < p; i += kThreads) dy[i] += v.cy[i];
     __syncthreads();
   }
-  mv_rows(G, m, n, dx, ds);                    // G dx
+  mv_rows(G, m, n, dx, ds);              // G dx
   for (int k = threadIdx.x; k < m; k += kThreads) {
     const float dsk = -v.rg[k] - ds[k];
     ds[k] = dsk;
@@ -339,7 +460,7 @@ __device__ inline float max_step(const float* val, const float* dv, int m,
   return nan_min(block_min(r, red), 1.f);
 }
 
-__global__ void __launch_bounds__(kThreads) ipm_iter_kernel(IpmArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) ipm_iter_kernel(IpmArgs a) {
   extern __shared__ float smem[];
   const int n = a.n, m = a.m, p = a.p;
   const int pb = blockIdx.x;
@@ -378,7 +499,8 @@ __global__ void __launch_bounds__(kThreads) ipm_iter_kernel(IpmArgs a) {
   const float m_act = fmaxf(block_sum(gsum, v.red), 1.f);
 
   // Schur complement S = (A Mi) A^T + reg_s I and its unrolled inverse
-  a_times_mi(v.A, Mi, p, n, v.AMi);
+  if (p <= 16) a_times_mi<16>(v.A, Mi, p, n, v.AMi);
+  else a_times_mi<kMaxP>(v.A, Mi, p, n, v.AMi);
   {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     for (int pr = warp; pr < p * p; pr += kWarps) {
@@ -398,12 +520,11 @@ __global__ void __launch_bounds__(kThreads) ipm_iter_kernel(IpmArgs a) {
   // r_g = G x + s - h
   mv_rows(H, n, n, v.x, v.t1);
   vtm(v.y, v.A, p, n, v.t2, v.scratch);
-  vtm(v.lam, G, m, n, v.e1, v.scratch);
+  g_residual_pass(G, m, n, v.x, v.lam, v.rg, v.e1, v.scratch);
   for (int c = threadIdx.x; c < n; c += kThreads)
     v.rd[c] = ((v.t1[c] + v.q[c]) + v.t2[c]) + v.e1[c];
   mv_rows(v.A, p, n, v.x, v.rp);
   for (int i = threadIdx.x; i < p; i += kThreads) v.rp[i] -= v.b[i];
-  mv_rows(G, m, n, v.x, v.rg);
   for (int k = threadIdx.x; k < m; k += kThreads)
     v.rg[k] = (v.rg[k] + v.s[k]) - v.h[k];
   __syncthreads();
@@ -480,7 +601,9 @@ BGGT_API int bggt_ipm_iter(const float* H, const float* q, const float* A,
                            int B, int n, int m, int p, float reg_s, float tol,
                            float tol_r, float w_lo, float w_hi, float eps,
                            int refine_steps, void* stream) {
-  if (p > bggt::kMaxP) return (int)cudaErrorInvalidValue;
+  if (p > bggt::kMaxP || n % 128 != 0 || m % 128 != 0 ||
+      n > 128 * bggt::kWarps)
+    return (int)cudaErrorInvalidValue;
   const size_t bytes = bggt::smem_floats(n, m, p) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bggt::ipm_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

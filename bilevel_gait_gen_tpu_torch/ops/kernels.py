@@ -5,18 +5,26 @@ Ports of the three TPU kernels of
 
 * :func:`gtwg` (``csrc/gtwg.cu``) replaces ``pallas_kernels.gtwg``:
   batched M = H + G^T diag(W) G (+ reg I).  Bound on this card by FP32 FFMA
-  throughput (2 n^2 m flop per problem, no float32-input tensor-core path);
-  the simple design is a 64x64 register-tiled block per output tile that
-  loops over the rows of G, scaling them by W as they are loaded.
+  throughput (the triangle of the symmetric product is m n (n + 1) flop per
+  problem; no tensor-core path keeps float32 inputs).  The design: 128x128
+  output tiles on and above the diagonal only, each also written to its
+  mirrored place (G^T W G comes out exactly symmetric), an 8x8 register tile
+  per thread fed by 16-byte shared-memory loads, slabs of G staged by
+  ``cp.async`` in a four-stage ring and scaled by W in shared memory.
 * :func:`ipm_iter` (``csrc/ipm_iter.cu`` plus the two kernels of
   ``csrc/gtwg.cu``) replaces ``pallas_kernels.ipm_iter``: one fused
   Mehrotra sweep.  A problem does not fit in one block's shared memory
   (M alone is 256 KB at n = 256), so the wrapper chains gtwg (M, with
-  W = clip(lam / s) formed in the kernel), the batched GEMM of the
-  Newton-Schulz refresh when ``do_ns``, and one block per problem for the
-  rest of the iteration.  Bound by memory traffic (G, M and Mi are streamed
-  several times per sweep, mostly from L2); the simple design keeps every
-  vector in shared memory and reads matrices with whole warps.
+  W = clip(lam / s) formed in the kernel; skipped when the caller hands
+  over the M it formed for an exact refresh), the batched GEMM of the
+  Newton-Schulz refresh when ``do_ns`` (the tile design of gtwg, without
+  the symmetry), and one block per problem for the rest of the iteration.
+  M and the Newton-Schulz products are bound by FP32 FFMA throughput; the
+  iteration kernel by device-memory traffic (G is streamed five times per
+  sweep, Mi nine times, M twice, and at 512 problems none of them stays in
+  the 50 MB L2): it keeps every vector in shared memory, shares one pass
+  over G between the two residual products, keeps two rows of every warp
+  in flight and runs two blocks per SM.
 * :func:`gj_inverse` (``csrc/gj_inverse.cu``) replaces
   ``pallas_kernels.gj_inverse``: the batched Gauss-Jordan inverse without
   pivoting, blocked for n a multiple of the block width.  One block owns
@@ -31,7 +39,8 @@ Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version only on a CPU tensor; there is no fallback.  Each keeps
 a plain integer count of its launches in ``<wrapper>.launches``.
 
-The CUDA sources are compiled with ``nvcc`` for ``sm_90a`` at first use into
+The CUDA sources are compiled with ``nvcc`` for ``sm_90a`` at first use
+(one compiler per source file, side by side) into
 ``bilevel_gait_gen_tpu_torch/_build/<hash of the sources>/`` and loaded with
 ``ctypes``; nothing is built or imported from CUDA when this module is
 imported.
@@ -52,15 +61,15 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _SOURCES = ("common.cuh", "gtwg.cu", "ipm_iter.cu", "gj_inverse.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "bggt_gtwg": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P], _I),
-    "bggt_gemm": ([_P, _P, _P, _I, _I, _F, _F, _P], _I),
+    "bggt_gtwg": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
+                  _I),
+    "bggt_gemm": ([_P, _P, _P, _I, _I, _F, _F, _I, _P], _I),
     "bggt_ipm_iter": ([_P] * 20 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                    _I, _P], _I),
     "bggt_gj_inverse": ([_P, _P, _I, _I, _I, _P], _I),
@@ -70,6 +79,7 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_lib_path: Path | None = None
 
 
 def _nvcc() -> str:
@@ -98,29 +108,52 @@ def bind(path: str | os.PathLike) -> ctypes.CDLL:
     return lib
 
 
+def _compile(out_dir: Path, lib_path: Path) -> None:
+    """One nvcc per source, all started together, then the link.  The
+    commands and the compilers' output go to ``build.log``."""
+    nvcc, tag = _nvcc(), os.getpid()
+    units = [n for n in _SOURCES if n.endswith(".cu")]
+    objs = [out_dir / f"{Path(n).stem}.{tag}.o" for n in units]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / n), "-o", str(o)]
+            for n, o in zip(units, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = [" ".join(c) + "\n" + pr.communicate()[0]
+           for c, pr in zip(cmds, procs)]
+    failed = any(pr.returncode != 0 for pr in procs)
+    if not failed:
+        tmp = out_dir / f"libbggt_kernels.{tag}.tmp.so"
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        failed = res.returncode != 0
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
+    os.replace(tmp, lib_path)
+
+
 def build() -> tuple[ctypes.CDLL, Path]:
-    """Compile the CUDA sources (once per source hash) and load them.
+    """Compile the CUDA sources (once per source hash, the three files side
+    by side) and load them.
 
     The library goes to ``_build/<hash>/``; the compiler's ``-Xptxas -v``
     report (registers, shared memory, spills) is kept beside it as
-    ``build.log``.  A failed build raises with the compiler's output."""
-    global _lib
-    out_dir = BUILD_ROOT / source_hash()
-    lib_path = out_dir / "libbggt_kernels.so"
+    ``build.log``.  A failed build raises with the compiler's output.
+    Once loaded, a call costs nothing: the sources are hashed only before
+    the first load, not at every launch."""
+    global _lib, _lib_path
     if _lib is None:
+        out_dir = BUILD_ROOT / source_hash()
+        lib_path = out_dir / "libbggt_kernels.so"
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"libbggt_kernels.{os.getpid()}.tmp.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / n) for n in _SOURCES if n.endswith(".cu"))]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-            os.replace(tmp, lib_path)
-        _lib = bind(lib_path)
-    return _lib, lib_path
+            _compile(out_dir, lib_path)
+        _lib, _lib_path = bind(lib_path), lib_path
+    return _lib, _lib_path
 
 
 def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -157,6 +190,13 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _vec16(n: int, *ts: torch.Tensor) -> int:
+    """1 if rows of n floats of these operands can move as 16-byte pieces
+    (n a multiple of 4, every base 16-byte aligned), else 0: the kernels
+    then take their scalar copies."""
+    return int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
+
+
 # ----------------------------------------------------------------------------
 # gtwg
 # ----------------------------------------------------------------------------
@@ -173,8 +213,18 @@ def gtwg_launch(lib, stream, H, G, W, lam, s, out, reg, w_lo, w_hi) -> None:
     """Launch csrc/gtwg.cu on raw operands (checked by the caller)."""
     B, m, n = G.shape
     rc = lib.bggt_gtwg(_ptr(H), _ptr(G), _ptr(W), _ptr(lam), _ptr(s),
-                       _ptr(out), B, m, n, reg, w_lo, w_hi, stream)
+                       _ptr(out), B, m, n, reg, w_lo, w_hi,
+                       _vec16(n, H, G, out), stream)
     _check(lib, rc, "gtwg")
+
+
+def ns_gemm_launch(lib, stream, A, Bm, C, alpha: float, diag: float) -> None:
+    """Launch the batched square product of csrc/gtwg.cu on contiguous
+    [B, n, n] operands: C = alpha A Bm + diag I."""
+    B, n, _ = A.shape
+    rc = lib.bggt_gemm(_ptr(A), _ptr(Bm), _ptr(C), B, n, alpha, diag,
+                       _vec16(n, A, Bm, C), stream)
+    _check(lib, rc, "ns gemm")
 
 
 def gtwg(H: torch.Tensor, G: torch.Tensor, W: torch.Tensor | None = None, *,
@@ -238,17 +288,18 @@ def chol_inverse_unrolled(S: torch.Tensor) -> torch.Tensor:
 
 def ipm_iter_reference(H, q, A, b, G, h, g_active, x, y, lam, s, done, it,
                        best, Mi_in, do_ns: bool, *, reg: float, tol: float,
-                       refine_steps: int, ns_steps: int):
+                       refine_steps: int, ns_steps: int, M=None):
     """Plain version of one fused sweep (any device): M with the sweep's
-    W, the Newton-Schulz refresh of Mi_in when ``do_ns`` (without the
-    non-finite fallback, as in the TPU kernel), then
-    ``pdip._iteration_math`` with the unrolled Schur inverse.  Returns
-    (x, y, lam, s, done, it, best, Mi) as new tensors."""
+    W (or the ``M`` handed in, which must be that matrix), the
+    Newton-Schulz refresh of Mi_in when ``do_ns`` (without the non-finite
+    fallback, as in the TPU kernel), then ``pdip._iteration_math`` with the
+    unrolled Schur inverse.  Returns (x, y, lam, s, done, it, best, Mi) as
+    new tensors."""
     from bilevel_gait_gen_tpu_torch.ops import pdip
 
-    eps = torch.finfo(q.dtype).eps
-    w_hi = 0.01 / eps
-    M = gtwg_reference(H, G, torch.clamp(lam / s, 1.0 / w_hi, w_hi), reg)
+    if M is None:
+        w_hi = 0.01 / torch.finfo(q.dtype).eps
+        M = gtwg_reference(H, G, torch.clamp(lam / s, 1.0 / w_hi, w_hi), reg)
     Mi = Mi_in
     if do_ns:
         I2 = 2.0 * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
@@ -279,13 +330,16 @@ def ipm_iter_launch(lib, stream, H, q, A, b, G, h, g_active, M, Mi, x, y,
 
 def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
              Mi_in, do_ns: bool, *, reg: float, tol: float,
-             refine_steps: int, ns_steps: int):
+             refine_steps: int, ns_steps: int, M=None):
     """One fused interior-point sweep (math: ``pdip._iteration_math``).
 
     Operands are batched [B, ...] and padded so that n and m are multiples
     of 128 (``pdip._solve_impl`` does this).  ``do_ns`` (a host bool: it
     depends only on the sweep index) refreshes Mi_in by Newton-Schulz
-    before the iteration.  On the card the iterate tensors x, y, lam, s and
+    before the iteration.  ``M``, when given, is the sweep's matrix
+    ``gtwg(H, G, lam=lam, s=s, w_hi=0.01 / eps, reg=reg)`` that the caller
+    has formed already (for an exact refresh): it is then not formed a
+    second time, and the result is bit for bit the same.  On the card the iterate tensors x, y, lam, s and
     the ``best`` tuple are updated in place (in contiguous copies where
     they were not contiguous) and returned; ``done`` (bool) and ``it``
     (int32) come back as new tensors, with Mi."""
@@ -293,12 +347,13 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
     B, m, n = G.shape
     p = A.shape[-2]
     if not _on_card(H, q, A, b, G, h, g_active, x, y, lam, s, bx, by, blam,
-                    bs, bmerit, Mi_in, it):
+                    bs, bmerit, Mi_in, it, *(() if M is None else (M,))):
         return ipm_iter_reference(
             H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best, Mi_in,
             do_ns, reg=reg, tol=tol, refine_steps=refine_steps,
-            ns_steps=ns_steps)
+            ns_steps=ns_steps, M=M)
     _require(n % 128 == 0 and m % 128 == 0, "pad n and m to multiples of 128")
+    _require(n <= 2048, f"n={n}: a row of n floats is split over 16 warps")
     _require(0 < p <= 32, f"p={p}: the Schur block holds at most 32 rows")
     for name, t, shape in (("H", H, (B, n, n)), ("Mi", Mi_in, (B, n, n)),
                            ("A", A, (B, p, n)), ("q", q, (B, n)),
@@ -319,17 +374,20 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
         bmerit, it = (t.contiguous() for t in (
             H, q, A, b, G, h, g_active, Mi_in, x, y, lam, s, bx, by, blam,
             bs, bmerit, it))
-    eps = torch.finfo(torch.float32).eps
-    M = gtwg(H, G, lam=lam, s=s, w_hi=0.01 / eps, reg=reg)
+    if M is None:
+        eps = torch.finfo(torch.float32).eps
+        M = gtwg(H, G, lam=lam, s=s, w_hi=0.01 / eps, reg=reg)
+    else:
+        _require(tuple(M.shape) == (B, n, n),
+                 f"M {tuple(M.shape)} != {(B, n, n)}")
+        M = M.contiguous()
     Mi = Mi_in
     if do_ns:
         T = torch.empty_like(Mi)
         for _ in range(ns_steps):
             X = torch.empty_like(Mi)
-            _check(lib, lib.bggt_gemm(_ptr(M), _ptr(Mi), _ptr(T), B, n, -1.0,
-                                      2.0, stream), "ns gemm")
-            _check(lib, lib.bggt_gemm(_ptr(Mi), _ptr(T), _ptr(X), B, n, 1.0,
-                                      0.0, stream), "ns gemm")
+            ns_gemm_launch(lib, stream, M, Mi, T, -1.0, 2.0)
+            ns_gemm_launch(lib, stream, Mi, T, X, 1.0, 0.0)
             Mi = X
     done_i = done.to(torch.int32)
     ipm_iter_launch(lib, stream, H, q, A, b, G, h, g_active, M, Mi, x, y,

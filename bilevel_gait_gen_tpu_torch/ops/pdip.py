@@ -417,15 +417,17 @@ def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
         # sweep index, so only the branch taken runs
         exact = (i < 2) or (i % exact_every == 0)
         if use_pallas:
+            # an exact sweep forms M for the Cholesky and hands it on, so
+            # that the sweep does not form the same matrix again
             if exact:
-                Mi_in = _chol_inverse(kernels.gtwg(H, G, lam=lam, s=s,
-                                                   w_hi=w_hi, reg=reg))
+                M = kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi, reg=reg)
+                Mi_in = _chol_inverse(M)
             else:
-                Mi_in = Mi_prev
+                M, Mi_in = None, Mi_prev
             x, y, lam, s, done, it, best, Mi = kernels.ipm_iter(
                 H, q, A, b, G, h, g_active_f, x, y, lam, s, done, it, best,
                 Mi_in, not exact, reg=reg, tol=tol,
-                refine_steps=refine_steps, ns_steps=ns_steps)
+                refine_steps=refine_steps, ns_steps=ns_steps, M=M)
         else:
             W = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
             M = H + G.mT @ (G * W[..., None]) + reg * eye_n

@@ -16,9 +16,14 @@ it on the way:
    512 lane problems; the exact refresh's 128 matrices of an RTI and the 512
    of the lanes' start point), ``spd_inverse`` against the Cholesky inverse
    by residual, with CUDA-event timings, each kernel's bound on this card
-   and the time of the PyTorch call that computes the same function;
+   and the time of the PyTorch call that computes the same function; the
+   sweep is timed with its Newton-Schulz refresh and as an exact sweep
+   handed its M, with its parts (M, the Newton-Schulz products, the
+   iteration kernel) and ``gtwg`` and the Newton-Schulz product at both
+   batches of the path (512 lanes, 128 polish problems);
 4. the slice: one warm-up and two timed cadence cycles; every kernel of the
-   path must have launched during it;
+   path must have launched during it, ``gtwg`` and ``ipm_iter`` six times
+   a cycle each;
 5. card against CPU: two scenarios of the same cadence on the card (float32)
    and on the CPU (float64): the embedded RTI's cost within 1%, its QP
    objective and the winning lane's within what float32 allows;
@@ -85,8 +90,10 @@ def bench_config():
                      qp_kernel="xla").validate()
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median over ``reps`` single calls, each between two CUDA events."""
+def cuda_ms(fn, reps: int = 10, warm: int = 2, inner: int = 1) -> float:
+    """Median over ``reps`` timings of one call, each between two CUDA
+    events (of ``inner`` calls in a row, divided by ``inner``: for a bare
+    launch, whose host side would otherwise show in the window)."""
     import torch
     for _ in range(warm):
         fn()
@@ -95,10 +102,11 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -189,6 +197,17 @@ def clone_args(args):
             for a in args]
 
 
+def fresh_state(args):
+    """A captured ipm_iter call with clones of what the sweep writes (x, y,
+    lam, s, it and the best iterate) and the read-only operands as they
+    are."""
+    out = list(args)
+    for i in (7, 8, 9, 10, 12):
+        out[i] = args[i].clone()
+    out[13] = tuple(b.clone() for b in args[13])
+    return out
+
+
 def to_float64(args):
     """Float64 copies of a captured ipm_iter call (for the plain version)."""
     return [tuple(b.double() if b.is_floating_point() else b.clone()
@@ -199,8 +218,9 @@ def to_float64(args):
 
 def capture_sweeps(qp, cfg):
     """Solve the lane QPs on the fused path and keep clones of the
-    arguments of kernels.ipm_iter at every sweep (pdip sees a recording
-    stand-in for the kernels module for the duration)."""
+    arguments of kernels.ipm_iter at every sweep, the M handed over on an
+    exact sweep among them (pdip sees a recording stand-in for the kernels
+    module for the duration)."""
     from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
     calls = []
 
@@ -209,7 +229,9 @@ def capture_sweeps(qp, cfg):
             return getattr(kernels, name)
 
         def ipm_iter(self, *args, **kw):
-            calls.append((clone_args(args), dict(kw)))
+            kept = {k: v.clone() if hasattr(v, "clone") else v
+                    for k, v in kw.items()}
+            calls.append((clone_args(args), kept))
             return kernels.ipm_iter(*args, **kw)
 
     pdip.kernels = Recorder()
@@ -235,63 +257,118 @@ def check_gtwg(H, G, lam, s, w_hi, reg, label):
     return err, float(torch.amax(torch.abs(M - ref)))
 
 
+def time_gemms(H, G, lam, s, w_hi, reg):
+    """gtwg through its wrapper, the PyTorch call for the same function
+    (baddbmm on the scaled G), the Newton-Schulz product as a bare launch
+    and its PyTorch call, at the batch of the operands: milliseconds."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    lib, _ = kernels.build()
+    Wl = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
+    X, Y = H, torch.empty_like(H)
+    eye = torch.eye(H.shape[-1], device=H.device).expand_as(H)
+    return dict(
+        gtwg=cuda_ms(lambda: kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi,
+                                          reg=reg)),
+        gtwg_library=cuda_ms(
+            lambda: torch.baddbmm(H, (G * Wl[..., None]).mT, G)),
+        ns_gemm=cuda_ms(lambda: kernels.ns_gemm_launch(
+            lib, kernels._stream(), X, X, Y, -1.0, 2.0), inner=4),
+        ns_gemm_library=cuda_ms(
+            lambda: torch.baddbmm(eye, X, X, beta=2.0, alpha=-1.0)))
+
+
 def phase_kernels(cfg):
     """Each kernel against its plain version on the card, at the shapes
     the main path gives it, then both timed there."""
     import torch
     from bilevel_gait_gen_tpu_torch.ops import kernels
     dev = torch.device(DEVICE)
+    lib, _ = kernels.build()
     w_hi = 0.01 / torch.finfo(torch.float32).eps
     rows = []
 
     # the lane sweeps of the gait update: 512 problems [n=256, m=1280, p=16]
     qp = lane_qps(cfg, dev)
+    before = kernels.gtwg.launches
     calls = capture_sweeps(qp, cfg)
     check(len(calls) == cfg.ls_ipm_iters, "one ipm_iter call per lane sweep")
+    check(kernels.gtwg.launches - before == len(calls),
+          "gtwg launched once per lane sweep")
+    for i, (args, kw) in enumerate(calls):
+        exact = not args[15]
+        check((kw.get("M") is not None) == exact,
+              f"lane sweep {i}: M handed over exactly on an exact sweep")
     args0, kw0 = calls[0]
     H, G, lam, s = args0[0], args0[4], args0[9], args0[10]
+    reg = kw0["reg"]
     shape = (f"[{H.shape[0]}, n={H.shape[-1]}, m={G.shape[-2]}, "
              f"p={args0[2].shape[-2]}]")
 
-    # gtwg: at the lane shape on lane data, and ragged on random data
-    err, abs_err = check_gtwg(H, G, lam, s, w_hi, kw0["reg"], "lanes")
+    # gtwg: at the lane shape on lane data, and ragged on random data (n a
+    # multiple of 4: 16-byte copies; n = 230: the scalar copies)
+    err, abs_err = check_gtwg(H, G, lam, s, w_hi, reg, "lanes")
+    M = kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi, reg=reg)
+    check(torch.equal(M, kw0["M"]), "gtwg gives the same M twice")
+    D = kernels.gtwg(torch.zeros_like(H), G, lam=lam, s=s, w_hi=w_hi)
+    check(torch.equal(D, D.mT), "G^T W G comes out exactly symmetric")
     g = torch.Generator(device=dev).manual_seed(0)
-    Hr = torch.randn(BATCH, 232, 232, device=dev, generator=g)
-    Gr = torch.randn(BATCH, 1232, 232, device=dev, generator=g)
-    lr = torch.rand(BATCH, 1232, device=dev, generator=g) + 0.01
-    sr = torch.rand(BATCH, 1232, device=dev, generator=g) + 0.01
-    err_r, abs_r = check_gtwg(Hr, Gr, lr, sr, w_hi, 1e-6, "ragged")
-    ms = cuda_ms(lambda: kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi,
-                                      reg=kw0["reg"]))
+    ragged = {}
+    for nr in (232, 230):
+        Hr = torch.randn(BATCH, nr, nr, device=dev, generator=g)
+        Gr = torch.randn(BATCH, 1232, nr, device=dev, generator=g)
+        lr = torch.rand(BATCH, 1232, device=dev, generator=g) + 0.01
+        sr = torch.rand(BATCH, 1232, device=dev, generator=g) + 0.01
+        ragged[nr] = check_gtwg(Hr, Gr, lr, sr, w_hi, 1e-6, f"ragged n={nr}")
+    t512 = time_gemms(H, G, lam, s, w_hi, reg)
+    t128 = time_gemms(H[:BATCH], G[:BATCH], lam[:BATCH], s[:BATCH], w_hi, reg)
     plain = cuda_ms(lambda: kernels.gtwg_reference(
-        H, G, torch.clamp(lam / s, 1.0 / w_hi, w_hi), kw0["reg"]))
-    # the one PyTorch call for the same function: baddbmm on the scaled G
-    Wl = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
-    lib_ms = cuda_ms(lambda: torch.baddbmm(H, (G * Wl[..., None]).mT, G))
+        H, G, torch.clamp(lam / s, 1.0 / w_hi, w_hi), reg))
+    # the least work: the triangle of the symmetric product, B m n (n + 1)
     Bl, ml, nl = G.shape
-    gtwg_flops = 2.0 * Bl * nl * nl * ml
+    gtwg_flops = 1.0 * Bl * ml * nl * (nl + 1)
     gtwg_bytes = 4.0 * Bl * (2 * nl * nl + ml * nl + 2 * ml)
     bnd, by = bound_ms(gtwg_flops, gtwg_bytes)
+    ns_flops = 2.0 * Bl * nl ** 3
+    ns_bnd, _ = bound_ms(ns_flops, 4.0 * Bl * 3 * nl * nl)
     print(f"[kernel] gtwg {shape}: max|dM|/max|M| {err:.3e}; ragged "
-          f"[{BATCH}, n=232, m=1232]: {err_r:.3e} (<= {TOL_GTWG}); kernel "
-          f"{ms:.3f} ms, plain {plain:.3f} ms, baddbmm {lib_ms:.3f} ms, "
-          f"bound {bnd:.3f} ms ({by})")
+          f"[{BATCH}, m=1232] n=232: {ragged[232][0]:.3e}, n=230: "
+          f"{ragged[230][0]:.3e} (<= {TOL_GTWG}); G^T W G symmetric; kernel "
+          f"{t512['gtwg']:.3f} ms, plain {plain:.3f} ms, baddbmm "
+          f"{t512['gtwg_library']:.3f} ms, bound {bnd:.3f} ms ({by}, the "
+          f"triangle); at batch {BATCH}: kernel {t128['gtwg']:.3f} ms, "
+          f"baddbmm {t128['gtwg_library']:.3f} ms")
+    print(f"[kernel] Newton-Schulz product [{Bl}, {nl}, {nl}]: kernel "
+          f"{t512['ns_gemm']:.3f} ms, baddbmm {t512['ns_gemm_library']:.3f} "
+          f"ms, bound {ns_bnd:.3f} ms; at batch {BATCH}: kernel "
+          f"{t128['ns_gemm']:.3f} ms, baddbmm "
+          f"{t128['ns_gemm_library']:.3f} ms")
     rows.append(dict(name="gtwg", route="cuda",
                      source="bilevel_gait_gen_tpu_torch/csrc/gtwg.cu",
                      replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:57",
-                     max_abs_err=max(abs_err, abs_r), ms=ms, plain_ms=plain,
-                     bound_ms=bnd, bound_by=by, library_ms=lib_ms))
+                     max_abs_err=max(abs_err, ragged[232][1], ragged[230][1]),
+                     ms=t512["gtwg"], plain_ms=plain, bound_ms=bnd,
+                     bound_by=by, library_ms=t512["gtwg_library"],
+                     ms_batch128=t128["gtwg"],
+                     library_ms_batch128=t128["gtwg_library"],
+                     ns_gemm_ms=t512["ns_gemm"],
+                     ns_gemm_library_ms=t512["ns_gemm_library"],
+                     ns_gemm_bound_ms=ns_bnd,
+                     ns_gemm_ms_batch128=t128["ns_gemm"],
+                     ns_gemm_library_ms_batch128=t128["ns_gemm_library"]))
 
-    # ipm_iter: every lane sweep (exact refresh at 0-1, Newton-Schulz at
-    # 2-3).  The tolerance: 1e-3 of max|ref|, or twice the plain version's
-    # own distance to the same sweep computed in float64 where float32 is
-    # less accurate than that (cold-start sweeps on these matrices are),
-    # never more than TOL_ITER_CAP.
+    # ipm_iter: every lane sweep (exact refresh at 0-1, handed its M as the
+    # solver hands it; Newton-Schulz at 2-3).  The tolerance: 1e-3 of
+    # max|ref|, or twice the plain version's own distance to the same sweep
+    # computed in float64 (M too) where float32 is less accurate than that
+    # (cold-start sweeps on these matrices are), never more than
+    # TOL_ITER_CAP.
     worst_abs = 0.0
     for i, (args, kw) in enumerate(calls):
+        kw64 = {k: v for k, v in kw.items() if k != "M"}
         got = kernels.ipm_iter(*clone_args(args), **kw)
         ref = kernels.ipm_iter_reference(*clone_args(args), **kw)
-        r64 = kernels.ipm_iter_reference(*to_float64(args), **kw)
+        r64 = kernels.ipm_iter_reference(*to_float64(args), **kw64)
         torch.cuda.synchronize()
         errs = []
         for name, a, r, d in zip(("x", "y", "lam", "s"), got[:4], ref[:4],
@@ -308,28 +385,72 @@ def phase_kernels(cfg):
         print(f"[kernel] ipm_iter sweep {i} do_ns={int(args[15])} {shape}: "
               f"{', '.join(errs)}; done/it identical; {moved} of "
               f"{got[0].shape[0]} problems stepped")
+
+    # times: the sweep with its Newton-Schulz refresh (sweep 2) and the exact
+    # sweep handed its M (sweep 0); only what a sweep writes is cloned inside
+    # the window
     args, kw = calls[2]
-    ms = cuda_ms(lambda: kernels.ipm_iter(*clone_args(args), **kw))
-    plain = cuda_ms(lambda: kernels.ipm_iter_reference(*clone_args(args),
+    ms = cuda_ms(lambda: kernels.ipm_iter(*fresh_state(args), **kw))
+    plain = cuda_ms(lambda: kernels.ipm_iter_reference(*fresh_state(args),
                                                        **kw))
-    # one sweep with the Newton-Schulz refresh: M (gtwg), 2 products per NS
-    # step, then the iteration's matrix-vector work (two directions with one
-    # refinement each: ~22 n^2 + 12 m n + 2 p n^2 per problem); it reads H,
-    # G, A, Mi and the vectors once and writes Mi and the vectors
+    ms_exact = cuda_ms(lambda: kernels.ipm_iter(*fresh_state(args0), **kw0))
+    plain_exact = cuda_ms(lambda: kernels.ipm_iter_reference(
+        *fresh_state(args0), **kw0))
+    # the parts of the chain as bare launches: M, the four Newton-Schulz
+    # products, the iteration kernel (on a state it updates in place)
+    stream = kernels._stream()
+    Hc, q, A, b, Gc, h, ga, x, y, lam2, s2, done, it, best, Mi_in, _ = (
+        fresh_state(args))
+    M2, T, X = (torch.empty_like(Hc) for _ in range(3))
+
+    def launch_m():
+        kernels.gtwg_launch(lib, stream, Hc, Gc, None, lam2, s2, M2, reg,
+                            1.0 / w_hi, w_hi)
+
+    def launch_ns():
+        Mi = Mi_in
+        for _ in range(kw["ns_steps"]):
+            kernels.ns_gemm_launch(lib, stream, M2, Mi, T, -1.0, 2.0)
+            kernels.ns_gemm_launch(lib, stream, Mi, T, X, 1.0, 0.0)
+            Mi = X
+
+    done_i = done.to(torch.int32)
+    parts = dict(
+        M=cuda_ms(launch_m, inner=3), ns_products=cuda_ms(launch_ns, inner=3),
+        iteration=cuda_ms(lambda: kernels.ipm_iter_launch(
+            lib, stream, Hc, q, A, b, Gc, h, ga, M2, Mi_in, x, y, lam2, s2,
+            *best, done_i, it, reg=reg, tol=kw["tol"],
+            refine_steps=kw["refine_steps"]), inner=3))
+    # least work of a sweep with the Newton-Schulz refresh: the triangle of
+    # M, 2 products per NS step, then the iteration's matrix-vector work (two
+    # directions with one refinement each: ~22 n^2 + 12 m n + 2 p n^2 per
+    # problem); it reads H, G, A, Mi and the vectors once and writes Mi and
+    # the vectors.  The exact sweep handed its M has the last part only and
+    # reads M too.
     pl_ = args[2].shape[-2]
-    it_flops = (gtwg_flops + kw["ns_steps"] * 2 * 2.0 * Bl * nl ** 3
-                + Bl * (22.0 * nl * nl + 12.0 * ml * nl + 2.0 * pl_ * nl * nl))
+    iter_flops = Bl * (22.0 * nl * nl + 12.0 * ml * nl + 2.0 * pl_ * nl * nl)
+    it_flops = gtwg_flops + kw["ns_steps"] * 2 * ns_flops + iter_flops
     it_bytes = 4.0 * Bl * (3 * nl * nl + ml * nl + pl_ * nl
                            + 4 * (nl + pl_ + 2 * ml) + 3 * ml)
     bnd, by = bound_ms(it_flops, it_bytes)
+    bnd_exact, by_exact = bound_ms(iter_flops, it_bytes)
     print(f"[kernel] ipm_iter sweep (do_ns=1) {shape}: kernel chain "
           f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
-          f"no single PyTorch call computes a sweep")
+          f"exact sweep handed its M: chain {ms_exact:.3f} ms, plain "
+          f"{plain_exact:.3f} ms, bound {bnd_exact:.3f} ms ({by_exact}); "
+          f"parts as bare launches: M {parts['M']:.3f} ms, "
+          f"{2 * kw['ns_steps']} Newton-Schulz products "
+          f"{parts['ns_products']:.3f} ms, iteration kernel "
+          f"{parts['iteration']:.3f} ms; no single PyTorch call computes a "
+          f"sweep")
     rows.append(dict(name="ipm_iter", route="cuda",
                      source="bilevel_gait_gen_tpu_torch/csrc/ipm_iter.cu",
                      replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:155",
                      max_abs_err=worst_abs, ms=ms, plain_ms=plain,
-                     bound_ms=bnd, bound_by=by, library_ms=None))
+                     bound_ms=bnd, bound_by=by, library_ms=None,
+                     ms_exact_sweep=ms_exact, plain_ms_exact_sweep=plain_exact,
+                     bound_ms_exact_sweep=bnd_exact,
+                     bound_by_exact_sweep=by_exact, parts_ms=parts))
     rows.append(check_gj_inverse(cfg, qp))
     return rows
 
@@ -557,8 +678,10 @@ def phase_slice(cfg):
     check(tuple(st.traj.x_man.shape) == (BATCH, cfg.num_nodes + 1, 13),
           "trajectory shape")
     check(frac >= 0.95, f"solved_frac {frac:.4f} >= 0.95")
+    # per cycle: 4 lane sweeps and 2 polish sweeps, each one ipm_iter launch
+    # and one gtwg launch (an exact sweep's M is formed once and handed on)
     for name, n in launches.items():
-        check(n > 0, f"{name} launched during the cadence")
+        check(n == 6 * 3, f"{name}: {n} launches in 3 cycles, not 6 a cycle")
     print(f"[slice] batch {BATCH}, N={cfg.num_nodes}, FREQ={FREQ}: "
           f"{BATCH * FREQ / cyc:.1f} solves/s, {cyc * 1e3:.1f} ms/cycle "
           f"(cycles {', '.join(f'{s * 1e3:.1f}' for s in secs)} ms, first "

@@ -356,3 +356,64 @@ def test_gj_adjoint_matches_jax_grad(interpret_mode):
             gj = np.asarray(gj)
             err = np.abs(g[k].numpy() - gj).max() / np.abs(gj).max()
             assert err < 1e-3, (name, k, err)
+
+
+# ---------------------------------------------------------------------------
+# The fused path forms M once per sweep: an exact sweep hands the M of its
+# Cholesky refresh on to kernels.ipm_iter.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [
+    dict(iters=8, exact_every=3),
+    dict(iters=4, exact_every=5),
+], ids=["rti_cadence", "lane_cadence"])
+def test_fused_path_hands_M_on_exact_sweeps_only(monkeypatch, kw):
+    """kernels.gtwg is called once per exact sweep by the solver and its
+    result, the same tensor, is what kernels.ipm_iter gets as ``M``; a
+    Newton-Schulz sweep hands none (the sweep forms its own).  The solve
+    returns, bit for bit, what it returns when every sweep forms its own
+    M (float32, CPU tensors: both ways run the same plain arithmetic)."""
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    args = _batch([_random_qp(20, dtype=np.float32),
+                   _random_qp(21, dtype=np.float32, masked=True)])
+    formed, handed = [], []
+    gtwg, ipm_iter = kernels.gtwg, kernels.ipm_iter
+
+    def rec_gtwg(*a, **k):
+        formed.append(gtwg(*a, **k))
+        return formed[-1]
+
+    def rec_iter(*a, M=None, **k):
+        handed.append((bool(a[15]), M))
+        return ipm_iter(*a, M=M, **k)
+
+    monkeypatch.setattr(kernels, "gtwg", rec_gtwg)
+    monkeypatch.setattr(kernels, "ipm_iter", rec_iter)
+    sol = pdip.solve(*args, tol=1e-7, use_pallas=True, **kw)
+    exact = [i < 2 or i % kw["exact_every"] == 0 for i in range(kw["iters"])]
+    assert [not ns for ns, _ in handed] == exact
+    assert len(formed) == sum(exact)
+    mats = iter(formed)
+    for ns, M in handed:
+        assert (M is None) if ns else (M is next(mats))
+
+    monkeypatch.setattr(kernels, "ipm_iter",
+                        lambda *a, M=None, **k: ipm_iter(*a, **k))
+    own = pdip.solve(*args, tol=1e-7, use_pallas=True, **kw)
+    for f in FIELDS + ("iters",):
+        assert torch.equal(getattr(sol, f), getattr(own, f)), f
+
+
+def test_fused_path_handing_M_keeps_the_jax_signature():
+    """With M left out, kernels.ipm_iter and its plain version take the
+    arguments of pallas_kernels.ipm_iter in the same order and the same
+    keywords; ``M`` is the port's one addition, keyword only, default None."""
+    import inspect
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    jparams = list(inspect.signature(pk.ipm_iter).parameters)
+    for fn in (kernels.ipm_iter, kernels.ipm_iter_reference):
+        params = inspect.signature(fn).parameters
+        names = [n for n in params if n != "M"]
+        assert names == [n for n in jparams if n != "interpret"], names
+        assert params["M"].default is None
+        assert params["M"].kind is inspect.Parameter.KEYWORD_ONLY
