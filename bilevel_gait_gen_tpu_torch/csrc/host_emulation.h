@@ -75,6 +75,14 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   emu_warp_barriers[w]->arrive_and_wait();
   return r;
 }
+inline float __shfl_sync(unsigned, float v, int src_lane) {
+  const int w = threadIdx.x / 32;
+  emu_shuffle[w][threadIdx.x % 32] = v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  const float r = emu_shuffle[w][src_lane];
+  emu_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
 // separately rounded product and difference (no contraction into an FMA)
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;

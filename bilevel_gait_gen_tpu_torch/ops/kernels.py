@@ -27,17 +27,25 @@ Ports of the three TPU kernels of
   in flight and runs two blocks per SM.
 * :func:`gj_inverse` (``csrc/gj_inverse.cu``) replaces
   ``pallas_kernels.gj_inverse``: the batched Gauss-Jordan inverse without
-  pivoting, blocked for n a multiple of the block width.  One block owns
-  one matrix, which stays in the output buffer (L2 resident at the main
-  path's batch); the diagonal block and the panels of a step are staged in
-  shared memory.  Latency bound on the chain of n dependent pivot steps.
+  pivoting, blocked (width 32) for n a multiple of the block width.  One
+  block of 256 threads owns one matrix.  Bound by the chain of n / 32
+  dependent block steps and by what one SM can feed its FFMA units from its
+  own memory, so the matrix stays on the chip: where the caller says how
+  many leading rows are real (``n_valid``; the rest is a diagonal padding)
+  and they fit a block's shared memory (up to 232 rows), the resident form
+  keeps the matrix there from its one load to its one store; else (n = 256)
+  the streaming form keeps it in the L2-resident output buffer and stages
+  the panels of a step.  :func:`gj_form` picks the form by shape alone.  In
+  both, one warp inverts the next diagonal block with shuffles while the
+  others run the rank-32 update on 8 x 8 register tiles.
   :func:`spd_inverse` is the tensor code around it (Jacobi scaling, identity
   padding, shift, guarded Newton-Schulz deflation), the exact refresh of
   ``cfg.ipm_inverse="gj"``.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version only on a CPU tensor; there is no fallback.  Each keeps
-a plain integer count of its launches in ``<wrapper>.launches``.
+a plain integer count of its launches in ``<wrapper>.launches``
+(``gj_inverse`` also by form, in ``gj_inverse.launches_by_form``).
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a`` at first use
 (one compiler per source file, side by side) into
@@ -72,8 +80,8 @@ _SIGNATURES = {
     "bggt_gemm": ([_P, _P, _P, _I, _I, _F, _F, _I, _P], _I),
     "bggt_ipm_iter": ([_P] * 20 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                    _I, _P], _I),
-    "bggt_gj_inverse": ([_P, _P, _I, _I, _I, _P], _I),
-    "bggt_gj_smem_bytes": ([_I], _I),
+    "bggt_gj_inverse": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    "bggt_gj_smem_bytes": ([_I, _I], _I),
     "bggt_gj_block_width": ([], _I),
     "bggt_error_string": ([_I], ctypes.c_char_p),
 }
@@ -429,64 +437,129 @@ def _gj_scalar(A: torch.Tensor) -> torch.Tensor:
     return A
 
 
-def gj_inverse_reference(M: torch.Tensor, w: int = 128) -> torch.Tensor:
-    """Plain version of the Gauss-Jordan inverse of [..., n, n] (any device
-    and dtype): the blocked form of ``_gj_kernel_blocked`` with block width
-    ``w`` when n is a multiple of ``w`` (128 is the JAX kernel's width), the
-    scalar form of ``_gj_kernel`` otherwise."""
+def _gj_blocked(M: torch.Tensor, w: int) -> torch.Tensor:
+    """Blocked form of ``_gj_kernel_blocked`` with block width ``w``.  Where
+    n is not a multiple of ``w`` the last block is the rows that are left,
+    widened to ``w`` by a decoupled identity, so that every product sums
+    over ``w`` terms as in a matrix padded to a multiple of ``w``."""
     n = M.shape[-1]
-    if n % w != 0:
-        return _gj_scalar(M)
     A = M.clone()
-    eye2 = 2.0 * torch.eye(w, dtype=M.dtype, device=M.device)
+    eye = torch.eye(w, dtype=M.dtype, device=M.device)
     for lo in range(0, n, w):
-        hi = lo + w
-        D = A[..., lo:hi, lo:hi].clone()
-        Dinv = _gj_scalar(D)
-        Dinv = Dinv @ (eye2 - D @ Dinv)
-        rowJ = A[..., lo:hi, :].clone()
-        rowJ[..., :, lo:hi] = 0.5 * eye2
+        hi = min(lo + w, n)
+        v = hi - lo
+        D = eye.expand(*M.shape[:-2], w, w).clone()
+        D[..., :v, :v] = A[..., lo:hi, lo:hi]
+        Dinv = _gj_scalar(D.clone())
+        Dinv = Dinv @ (2.0 * eye - D @ Dinv)
+        rowJ = A.new_zeros(*M.shape[:-2], w, n)
+        rowJ[..., :v, :] = A[..., lo:hi, :]
+        rowJ[..., :, lo:hi] = eye[:, :v]
         rowJ = Dinv @ rowJ
-        colz = A[..., :, lo:hi].clone()
+        colz = A.new_zeros(*M.shape[:-2], n, w)
+        colz[..., :, :v] = A[..., :, lo:hi]
         colz[..., lo:hi, :] = 0.0
         A = A - colz @ rowJ
-        A[..., lo:hi, :] = rowJ
+        A[..., lo:hi, :] = rowJ[..., :v, :]
         colh = -(colz @ Dinv)
-        colh[..., lo:hi, :] = Dinv
-        A[..., :, lo:hi] = colh
+        colh[..., lo:hi, :] = Dinv[..., :v, :]
+        A[..., :, lo:hi] = colh[..., :, :v]
     return A
 
 
-def gj_inverse(M: torch.Tensor) -> torch.Tensor:
+def gj_inverse_reference(M: torch.Tensor, w: int = 128,
+                         n_valid: int | None = None) -> torch.Tensor:
+    """Plain version of the Gauss-Jordan inverse of [..., n, n] (any device
+    and dtype): the blocked form of ``_gj_kernel_blocked`` with block width
+    ``w`` when n is a multiple of ``w`` (128 is the JAX kernel's width), the
+    scalar form of ``_gj_kernel`` otherwise.
+
+    ``n_valid`` (n a multiple of ``w``) says that the rows and columns from
+    ``n_valid`` on are those of a diagonal matrix.  The result is the one of
+    the blocked form on all of M, computed from the leading block alone:
+    zeros multiply and add exactly, so that block is inverted with a last
+    block narrower than ``w``, and a decoupled diagonal entry t comes out of
+    the scalar step and the polish as pinv (2 - t pinv), pinv = 1 / t."""
+    n = M.shape[-1]
+    if n_valid is None or n_valid == n:
+        return _gj_blocked(M, w) if n % w == 0 else _gj_scalar(M)
+    _require(n % w == 0 and 0 < n_valid < n,
+             f"n_valid={n_valid} needs 0 < n_valid <= n={n}, n a multiple "
+             f"of {w}")
+    t = torch.diagonal(M, dim1=-2, dim2=-1)[..., n_valid:]
+    pinv = 1.0 / torch.where(t.abs() < 1e-30, 1e-30, t)
+    out = torch.zeros_like(M)
+    out[..., :n_valid, :n_valid] = _gj_blocked(
+        M[..., :n_valid, :n_valid], w)
+    torch.diagonal(out, dim1=-2, dim2=-1)[..., n_valid:] = \
+        pinv * (2.0 - t * pinv)
+    return out
+
+
+GJ_FORMS = {"scalar": 0, "resident": 1, "streaming": 2}
+
+
+def gj_form(lib, n: int, n_valid: int) -> str:
+    """Which kernel of csrc/gj_inverse.cu inverts [n, n] matrices whose
+    leading ``n_valid`` rows are not diagonal, by shape alone: the scalar
+    form when n is no multiple of :data:`GJ_BLOCK`; else the resident form
+    (the matrix in the block's shared memory) where its ``n_valid`` rows
+    fit, which they do up to 232; else the streaming form."""
+    if n % GJ_BLOCK != 0:
+        return "scalar"
+    if lib.bggt_gj_smem_bytes(GJ_FORMS["resident"],
+                              n_valid) <= MAX_SMEM_BYTES:
+        return "resident"
+    need = lib.bggt_gj_smem_bytes(GJ_FORMS["streaming"], n)
+    _require(need <= MAX_SMEM_BYTES,
+             f"n={n}: the panels need {need} bytes of shared memory")
+    return "streaming"
+
+
+def gj_launch(lib, stream, M, out, n_valid: int, form: str) -> None:
+    """Launch csrc/gj_inverse.cu on contiguous [B, n, n] operands (checked
+    by the caller) in the form named."""
+    B, n, _ = M.shape
+    rc = lib.bggt_gj_inverse(_ptr(M), _ptr(out), B, n, n_valid,
+                             GJ_FORMS[form], stream)
+    _check(lib, rc, f"gj_inverse ({form})")
+
+
+def gj_inverse(M: torch.Tensor, n_valid: int | None = None) -> torch.Tensor:
     """Batched Gauss-Jordan inverse of SPD [..., n, n] without pivoting.
 
-    On the card: ``csrc/gj_inverse.cu`` (float32), the blocked form with
-    block width :data:`GJ_BLOCK` when n is a multiple of it, else the scalar
-    form.  On CPU tensors: :func:`gj_inverse_reference`.  There is no
-    Cholesky fallback, unlike the JAX wrapper off the TPU."""
+    ``n_valid``, where given, is the caller's word that the rows and columns
+    from ``n_valid`` on are those of a diagonal matrix (an identity padding,
+    shifted or not): the result is the same, and the kernel then works on
+    the leading block only.  On the card: ``csrc/gj_inverse.cu`` (float32)
+    in the form :func:`gj_form` names.  On CPU tensors:
+    :func:`gj_inverse_reference`.  There is no Cholesky fallback, unlike the
+    JAX wrapper off the TPU."""
     n = M.shape[-1]
     _require(M.ndim >= 2 and M.shape[-2] == n,
              f"square matrices expected, got {tuple(M.shape)}")
     if not _on_card(M):
-        return gj_inverse_reference(M)
+        return gj_inverse_reference(M, n_valid=n_valid)
     lib, _ = build()
     _require(lib.bggt_gj_block_width() == GJ_BLOCK,
              "kernel block width differs from GJ_BLOCK")
-    blocked = n % GJ_BLOCK == 0
-    if blocked:
-        need = lib.bggt_gj_smem_bytes(n)
-        _require(need <= MAX_SMEM_BYTES,
-                 f"n={n}: the panels need {need} bytes of shared memory")
+    nv = n if n_valid is None else n_valid
+    _require(0 < nv <= n and (nv == n or n % GJ_BLOCK == 0),
+             f"n_valid={n_valid} needs 0 < n_valid <= n={n}, n a multiple "
+             f"of {GJ_BLOCK}")
+    form = gj_form(lib, n, nv)
     Mc = M.contiguous()
+    if Mc.data_ptr() % 16:
+        Mc = Mc.clone()
     out = torch.empty_like(Mc)
-    B = Mc.numel() // (n * n)
-    _check(lib, lib.bggt_gj_inverse(_ptr(Mc), _ptr(out), B, n, int(blocked),
-                                    _stream()), "gj_inverse")
+    gj_launch(lib, _stream(), Mc.view(-1, n, n), out, nv, form)
     gj_inverse.launches += 1
+    gj_inverse.launches_by_form[form] += 1
     return out
 
 
 gj_inverse.launches = 0
+gj_inverse.launches_by_form = dict.fromkeys(GJ_FORMS, 0)
 
 
 def spd_scale_pad(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -511,25 +584,31 @@ def spd_inverse(M: torch.Tensor, *, shift: float = 1e-3,
                 deflate: int = 10) -> torch.Tensor:
     """SPD inverse of [..., n, n] for any n (``pallas_kernels.spd_inverse``):
     Jacobi-scale to unit diagonal, pad with an identity block to a multiple
-    of 128, invert the shifted matrix M + shift I with :func:`gj_inverse`,
-    deflate the shift with ``deflate`` guarded Newton-Schulz steps that keep
-    the best-residual iterate per matrix, crop and unscale."""
+    of 128, invert the shifted matrix M + shift I with :func:`gj_inverse`
+    (told that the padding starts at n), deflate the shift with ``deflate``
+    guarded Newton-Schulz steps that keep the best-residual iterate per
+    matrix, crop and unscale.  The product Mp @ out that a step's candidate
+    needs is the one the residual of the iterate kept was taken from, so it
+    is carried along: 1 + 2 ``deflate`` batched products a call."""
     n = M.shape[-1]
     Mp, d = spd_scale_pad(M)
     n_p = Mp.shape[-1]
     eye_p = torch.eye(n_p, dtype=M.dtype, device=M.device)
-    out = gj_inverse(Mp + shift * eye_p)
+    out = gj_inverse(Mp + shift * eye_p, n_valid=n)
     if deflate:
-        def resid(X):
-            return torch.amax(torch.abs(Mp @ X - eye_p), dim=(-2, -1))
+        def resid(P):
+            return torch.amax(torch.abs(P - eye_p), dim=(-2, -1))
 
-        r_best = resid(out)
+        P = Mp @ out
+        r_best = resid(P)
         for _ in range(deflate):
-            cand = out @ (2.0 * eye_p - Mp @ out)
-            r = resid(cand)
+            cand = out @ (2.0 * eye_p - P)
+            Pc = Mp @ cand
+            r = resid(Pc)
             fin = torch.isfinite(r)
-            take = (r < r_best) & fin
-            out = torch.where(take[..., None, None], cand, out)
+            take = ((r < r_best) & fin)[..., None, None]
+            out = torch.where(take, cand, out)
+            P = torch.where(take, Pc, P)
             r_best = torch.minimum(r_best, torch.where(fin, r, r_best))
     out = out[..., :n, :n]
     return out * d[..., :, None] * d[..., None, :]
@@ -539,3 +618,4 @@ def reset_launch_counts() -> None:
     gtwg.launches = 0
     ipm_iter.launches = 0
     gj_inverse.launches = 0
+    gj_inverse.launches_by_form = dict.fromkeys(GJ_FORMS, 0)

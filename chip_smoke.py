@@ -13,8 +13,10 @@ it on the way:
    ``bilevel_gait_gen_tpu_torch/csrc``;
 3. kernels: ``gtwg``, ``ipm_iter`` and ``gj_inverse`` on the card against
    their plain PyTorch versions at the main path's shapes (the gait update's
-   512 lane problems; the exact refresh's 128 matrices of an RTI and the 512
-   of the lanes' start point), ``spd_inverse`` against the Cholesky inverse
+   512 lane problems; the exact refresh's 128 matrices of an RTI, 232 rows
+   padded to 256, in the resident form that ``n_valid`` selects and in the
+   streaming form, and the 512 of the lanes' start point in the streaming
+   form), ``spd_inverse`` against the Cholesky inverse
    by residual, with CUDA-event timings, each kernel's bound on this card
    and the time of the PyTorch call that computes the same function; the
    sweep is timed with its Newton-Schulz refresh and as an exact sweep
@@ -322,8 +324,10 @@ def phase_kernels(cfg):
         ragged[nr] = check_gtwg(Hr, Gr, lr, sr, w_hi, 1e-6, f"ragged n={nr}")
     t512 = time_gemms(H, G, lam, s, w_hi, reg)
     t128 = time_gemms(H[:BATCH], G[:BATCH], lam[:BATCH], s[:BATCH], w_hi, reg)
-    plain = cuda_ms(lambda: kernels.gtwg_reference(
-        H, G, torch.clamp(lam / s, 1.0 / w_hi, w_hi), reg))
+    Wl = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
+    plain = cuda_ms(lambda: kernels.gtwg_reference(H, G, Wl, reg))
+    plain128 = cuda_ms(lambda: kernels.gtwg_reference(
+        H[:BATCH], G[:BATCH], Wl[:BATCH], reg))
     # the least work: the triangle of the symmetric product, B m n (n + 1)
     Bl, ml, nl = G.shape
     gtwg_flops = 1.0 * Bl * ml * nl * (nl + 1)
@@ -337,7 +341,7 @@ def phase_kernels(cfg):
           f"{t512['gtwg']:.3f} ms, plain {plain:.3f} ms, baddbmm "
           f"{t512['gtwg_library']:.3f} ms, bound {bnd:.3f} ms ({by}, the "
           f"triangle); at batch {BATCH}: kernel {t128['gtwg']:.3f} ms, "
-          f"baddbmm {t128['gtwg_library']:.3f} ms")
+          f"plain {plain128:.3f} ms, baddbmm {t128['gtwg_library']:.3f} ms")
     print(f"[kernel] Newton-Schulz product [{Bl}, {nl}, {nl}]: kernel "
           f"{t512['ns_gemm']:.3f} ms, baddbmm {t512['ns_gemm_library']:.3f} "
           f"ms, bound {ns_bnd:.3f} ms; at batch {BATCH}: kernel "
@@ -349,7 +353,7 @@ def phase_kernels(cfg):
                      max_abs_err=max(abs_err, ragged[232][1], ragged[230][1]),
                      ms=t512["gtwg"], plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=t512["gtwg_library"],
-                     ms_batch128=t128["gtwg"],
+                     ms_batch128=t128["gtwg"], plain_ms_batch128=plain128,
                      library_ms_batch128=t128["gtwg_library"],
                      ns_gemm_ms=t512["ns_gemm"],
                      ns_gemm_library_ms=t512["ns_gemm_library"],
@@ -415,12 +419,20 @@ def phase_kernels(cfg):
             Mi = X
 
     done_i = done.to(torch.int32)
+    launch_m()
+    it_args = (Hc, q, A, b, Gc, h, ga, M2, Mi_in, x, y, lam2, s2, *best,
+               done_i, it)
+
+    def launch_iteration(batch):
+        # the first ``batch`` problems: the polish runs the kernel at 128
+        kernels.ipm_iter_launch(
+            lib, stream, *(t[:batch] for t in it_args), reg=reg,
+            tol=kw["tol"], refine_steps=kw["refine_steps"])
+
     parts = dict(
         M=cuda_ms(launch_m, inner=3), ns_products=cuda_ms(launch_ns, inner=3),
-        iteration=cuda_ms(lambda: kernels.ipm_iter_launch(
-            lib, stream, Hc, q, A, b, Gc, h, ga, M2, Mi_in, x, y, lam2, s2,
-            *best, done_i, it, reg=reg, tol=kw["tol"],
-            refine_steps=kw["refine_steps"]), inner=3))
+        iteration=cuda_ms(lambda: launch_iteration(Hc.shape[0]), inner=3),
+        iteration_batch128=cuda_ms(lambda: launch_iteration(BATCH), inner=3))
     # least work of a sweep with the Newton-Schulz refresh: the triangle of
     # M, 2 products per NS step, then the iteration's matrix-vector work (two
     # directions with one refinement each: ~22 n^2 + 12 m n + 2 p n^2 per
@@ -434,6 +446,8 @@ def phase_kernels(cfg):
                            + 4 * (nl + pl_ + 2 * ml) + 3 * ml)
     bnd, by = bound_ms(it_flops, it_bytes)
     bnd_exact, by_exact = bound_ms(iter_flops, it_bytes)
+    bnd_it128, by_it128 = bound_ms(iter_flops * BATCH / Bl,
+                                   it_bytes * BATCH / Bl)
     print(f"[kernel] ipm_iter sweep (do_ns=1) {shape}: kernel chain "
           f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}); "
           f"exact sweep handed its M: chain {ms_exact:.3f} ms, plain "
@@ -441,8 +455,9 @@ def phase_kernels(cfg):
           f"parts as bare launches: M {parts['M']:.3f} ms, "
           f"{2 * kw['ns_steps']} Newton-Schulz products "
           f"{parts['ns_products']:.3f} ms, iteration kernel "
-          f"{parts['iteration']:.3f} ms; no single PyTorch call computes a "
-          f"sweep")
+          f"{parts['iteration']:.3f} ms (at batch {BATCH}: "
+          f"{parts['iteration_batch128']:.3f} ms, bound {bnd_it128:.3f} ms, "
+          f"{by_it128}); no single PyTorch call computes a sweep")
     rows.append(dict(name="ipm_iter", route="cuda",
                      source="bilevel_gait_gen_tpu_torch/csrc/ipm_iter.cu",
                      replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:155",
@@ -450,7 +465,8 @@ def phase_kernels(cfg):
                      bound_ms=bnd, bound_by=by, library_ms=None,
                      ms_exact_sweep=ms_exact, plain_ms_exact_sweep=plain_exact,
                      bound_ms_exact_sweep=bnd_exact,
-                     bound_by_exact_sweep=by_exact, parts_ms=parts))
+                     bound_by_exact_sweep=by_exact,
+                     bound_ms_iteration_batch128=bnd_it128, parts_ms=parts))
     rows.append(check_gj_inverse(cfg, qp))
     return rows
 
@@ -519,8 +535,10 @@ def within_chol_bound(r, rc):
 def check_gj_inverse(cfg, lane_qp):
     """gj_inverse against its plain version (at the kernel's block width) on
     matrices of the path: a cold RTI solve's start point and exact sweeps at
-    [128, 232 -> 256] and the lanes' start point at [512, 256]; spd_inverse
-    whole against the Cholesky inverse by residual on the cold matrices."""
+    [128, 232 -> 256], told n_valid=232 (resident form) and not told
+    (streaming form), and the lanes' start point at [512, 256] (streaming
+    form); spd_inverse whole against the Cholesky inverse by residual on the
+    cold matrices."""
     import torch
     from bilevel_gait_gen_tpu_torch.mpc import qp as qp_mod
     from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
@@ -547,30 +565,48 @@ def check_gj_inverse(cfg, lane_qp):
 
     w = kernels.GJ_BLOCK
     worst_abs = 0.0
-    for label, Mk in (("RTI start point", rti_in[0]),
-                      ("RTI sweep 0", rti_in[1]),
-                      (f"RTI sweep {cfg.ipm_exact_every}", rti_in[-1]),
-                      ("lane start point", lane_in[0])):
+    n_rti = rti_spd[0].shape[-1]
+    lib, _ = kernels.build()
+    # the RTI matrices are n_rti rows padded to 256: told so, the wrapper
+    # takes the resident form; not told, the streaming form, as it does for
+    # the lanes' start point, whose 256 rows are all real
+    for label, Mk, nv in (
+            ("RTI start point", rti_in[0], n_rti),
+            ("RTI sweep 0", rti_in[1], n_rti),
+            (f"RTI sweep {cfg.ipm_exact_every}", rti_in[-1], n_rti),
+            ("RTI start point", rti_in[0], None),
+            ("RTI sweep 0", rti_in[1], None),
+            (f"RTI sweep {cfg.ipm_exact_every}", rti_in[-1], None),
+            ("lane start point", lane_in[0], None)):
+        nk = Mk.shape[-1]
+        form = kernels.gj_form(lib, nk, nv or nk)
+        check(form == ("resident" if nv else "streaming"),
+              f"gj_inverse {label} n_valid={nv}: form {form}")
         before = kernels.gj_inverse.launches
-        X = kernels.gj_inverse(Mk)
+        X = kernels.gj_inverse(Mk, n_valid=nv)
         torch.cuda.synchronize()
         check(kernels.gj_inverse.launches == before + 1, "one launch counted")
         ref = kernels.gj_inverse_reference(Mk, w=w)
         r64 = kernels.gj_inverse_reference(Mk.double(), w=w).float()
         e, e64 = rel_err(X, ref), rel_err(ref, r64)
         tol = max(TOL_GJ, min(2.0 * e64, TOL_GJ_CAP))
-        eye = torch.eye(Mk.shape[-1], device=Mk.device)
+        eye = torch.eye(nk, device=Mk.device)
         res_k = float(torch.amax(torch.abs(Mk @ X - eye)))
         res_p = float(torch.amax(torch.abs(Mk @ ref - eye)))
         check(bool(torch.isfinite(X).all()), f"gj_inverse {label}: finite")
         check(e <= tol, f"gj_inverse {label}: rel {e:.3e} > {tol:.3e}")
         check(res_k <= 3.0 * res_p + 1e-5,
               f"gj_inverse {label}: residual {res_k:.3e} vs plain {res_p:.3e}")
+        if nv:
+            check(torch.equal(X[:, nv:], ref[:, nv:])
+                  and torch.equal(X[:, :, nv:], ref[:, :, nv:]),
+                  f"gj_inverse {label}: the tail from {nv} on is the padded "
+                  f"computation's, bit for bit")
         worst_abs = max(worst_abs, float(torch.amax(torch.abs(X - ref))))
-        print(f"[kernel] gj_inverse {label} {list(Mk.shape)} w={w}: "
-              f"max|dX|/max|X| {e:.3e} (<= {tol:.3e}; plain f32 vs f64 "
-              f"{e64:.3e}); residual max|MX-I| kernel {res_k:.3e}, plain "
-              f"{res_p:.3e}")
+        print(f"[kernel] gj_inverse {label} {list(Mk.shape)} n_valid={nv} "
+              f"({form}) w={w}: max|dX|/max|X| {e:.3e} (<= {tol:.3e}; plain "
+              f"f32 vs f64 {e64:.3e}); residual max|MX-I| kernel "
+              f"{res_k:.3e}, plain {res_p:.3e}")
 
     # spd_inverse whole on the cold matrices, by residual, with the bound of
     # the JAX package's tests: r < 20 * max(r_chol, 1e-6) per matrix
@@ -584,9 +620,10 @@ def check_gj_inverse(cfg, lane_qp):
               f"{ok.numel()} within 20 x max(Cholesky, 1e-6)")
         check(bool(ok.all()), f"spd_inverse {label} residual bound")
 
-    # times at the RTI shape (and the kernel at the lanes' too)
+    # times at the RTI shape in both forms, and at the lanes' shape
     Mk, M = rti_in[1], rti_spd[1]
-    ms = cuda_ms(lambda: kernels.gj_inverse(Mk))
+    ms = cuda_ms(lambda: kernels.gj_inverse(Mk, n_valid=n_rti))
+    ms_stream = cuda_ms(lambda: kernels.gj_inverse(Mk))
     ms_lane = cuda_ms(lambda: kernels.gj_inverse(lane_in[0]))
     plain = cuda_ms(lambda: kernels.gj_inverse_reference(Mk, w=w), reps=3,
                     warm=1)
@@ -596,21 +633,34 @@ def check_gj_inverse(cfg, lane_qp):
     cholinv_ms = cuda_ms(lambda: torch.cholesky_inverse(
         torch.linalg.cholesky_ex(M).L))
     inv_ms = cuda_ms(lambda: torch.linalg.inv(Mk))
-    Bk, nk = Mk.shape[0], Mk.shape[-1]
-    bnd, by = bound_ms(2.0 * Bk * nk ** 3, 4.0 * Bk * 2 * nk * nk)
-    print(f"[kernel] gj_inverse [{Bk}, {nk}, {nk}]: kernel {ms:.3f} ms "
-          f"([{lane_in[0].shape[0]}, {nk}, {nk}]: {ms_lane:.3f} ms), plain "
-          f"{plain:.3f} ms, torch.linalg.inv {inv_ms:.3f} ms, bound "
-          f"{bnd:.4f} ms ({by}; the kernel's real limit is its chain of "
-          f"{nk} dependent pivot steps); spd_inverse whole at "
-          f"{list(M.shape)} {spd_ms:.3f} ms, of which deflation "
-          f"{spd_ms - spd_nodefl:.3f} ms; pdip._chol_inverse {chol_ms:.3f} ms"
-          f", cholesky_ex + cholesky_inverse {cholinv_ms:.3f} ms")
+    inv_lane_ms = cuda_ms(lambda: torch.linalg.inv(lane_in[0]))
+    Bk, nk, Bl = Mk.shape[0], Mk.shape[-1], lane_in[0].shape[0]
+    # the work these inputs need: the n_rti real rows, the output whole
+    bnd, by = bound_ms(2.0 * Bk * n_rti ** 3,
+                       4.0 * Bk * (n_rti * n_rti + nk * nk))
+    bnd_pad, _ = bound_ms(2.0 * Bk * nk ** 3, 4.0 * Bk * 2 * nk * nk)
+    bnd_lane, by_lane = bound_ms(2.0 * Bl * nk ** 3, 4.0 * Bl * 2 * nk * nk)
+    print(f"[kernel] gj_inverse [{Bk}, {n_rti} -> {nk}, {nk}]: resident form "
+          f"{ms:.3f} ms (one block per matrix: {Bk} blocks fill {Bk} of the "
+          f"card's SMs once), streaming form (not told n_valid) "
+          f"{ms_stream:.3f} ms, plain {plain:.3f} ms, torch.linalg.inv "
+          f"{inv_ms:.3f} ms, bound {bnd:.4f} ms ({by}, 2 n^3 at n={n_rti}; "
+          f"{bnd_pad:.4f} ms at the padded n={nk}; the kernel's real limit "
+          f"is its chain of {-(-n_rti // w)} dependent block steps); "
+          f"[{Bl}, {nk}, {nk}] streaming form {ms_lane:.3f} ms, "
+          f"torch.linalg.inv {inv_lane_ms:.3f} ms, bound {bnd_lane:.4f} ms "
+          f"({by_lane}); spd_inverse whole at {list(M.shape)} {spd_ms:.3f} "
+          f"ms, of which deflation {spd_ms - spd_nodefl:.3f} ms; "
+          f"pdip._chol_inverse {chol_ms:.3f} ms, cholesky_ex + "
+          f"cholesky_inverse {cholinv_ms:.3f} ms")
     return dict(name="gj_inverse", route="cuda",
                 source="bilevel_gait_gen_tpu_torch/csrc/gj_inverse.cu",
                 replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:456",
                 max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=inv_ms, ms_lane_start=ms_lane,
+                bound_by=by, library_ms=inv_ms, bound_ms_padded=bnd_pad,
+                ms_streaming_form=ms_stream, ms_lane_start=ms_lane,
+                bound_ms_lane_start=bnd_lane,
+                library_ms_lane_start=inv_lane_ms,
                 spd_inverse_ms=spd_ms, spd_deflation_ms=spd_ms - spd_nodefl,
                 chol_inverse_ms=chol_ms)
 
@@ -792,7 +842,7 @@ def phase_cold_start_gj(cfg):
     inverse's residual against the Cholesky's on every matrix of the run, by
     iteration, and the run with the Cholesky at the start point of every
     solve only, then at the sweeps only.  Returns the launch counts of the
-    "gj" path."""
+    "gj" path, and gj_inverse's by form."""
     import torch
     from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
     from bilevel_gait_gen_tpu_torch.problem import make_problem
@@ -803,6 +853,7 @@ def phase_cold_start_gj(cfg):
         kernels.reset_launch_counts()
         st, stats, init_s, fracs = initial_run(cfg_i, pr)
         init_gj = kernels.gj_inverse.launches
+        init_forms = dict(kernels.gj_inverse.launches_by_form)
         st2, secs, solved, gres = run_cadence(
             cfg_i, dataclasses.replace(pr, states=st), cycles=1)
         launches = {"gtwg": kernels.gtwg.launches,
@@ -812,6 +863,8 @@ def phase_cold_start_gj(cfg):
             st.traj.x_man, st.traj.f_nodes, st.traj.footholds, stats.cost))
         out[inv] = dict(init_frac=float(stats.solved.float().mean()),
                         fracs=fracs, init_s=init_s, init_gj=init_gj,
+                        init_forms=init_forms,
+                        forms=dict(kernels.gj_inverse.launches_by_form),
                         init_cost=float(stats.cost[stats.solved].median()),
                         cyc_frac=solved_fraction(solved, gres),
                         cyc_s=secs[0], launches=launches,
@@ -826,9 +879,10 @@ def phase_cold_start_gj(cfg):
               f"{r['init_s'] * 1e3:.1f} ms, solved_frac by iteration "
               f"{[round(f, 4) for f in r['fracs']]}, median cost of the "
               f"solved {r['init_cost']:.4f}, gj_inverse launches "
-              f"{r['init_gj']}; then 1 cadence cycle {r['cyc_s'] * 1e3:.1f} "
-              f"ms, solved_frac {r['cyc_frac']:.4f}; all finite "
-              f"{r['finite']}; launches {r['launches']}")
+              f"{r['init_gj']} {r['init_forms']}; then 1 cadence cycle "
+              f"{r['cyc_s'] * 1e3:.1f} ms, solved_frac {r['cyc_frac']:.4f}; "
+              f"all finite {r['finite']}; launches {r['launches']}, "
+              f"gj_inverse by form {r['forms']}")
 
     # where the Gauss-Jordan refresh loses the Cholesky's residual: the same
     # run once more, every spd_inverse result of every sweep held against the
@@ -891,7 +945,10 @@ def phase_cold_start_gj(cfg):
           f'("chol": {out["chol"]["fracs"][0]:.4f})')
     for name, n in gj["launches"].items():
         check(n > 0, f'{name} launched on the "gj" path')
-    return gj["launches"]
+    for form in ("resident", "streaming"):
+        check(gj["forms"][form] > 0,
+              f'gj_inverse launched in its {form} form on the "gj" path')
+    return gj["launches"], gj["forms"]
 
 
 def main() -> int:
@@ -909,7 +966,7 @@ def main() -> int:
     launches, _, _ = phase_slice(cfg)
     phase_card_vs_cpu(cfg)
     phase_rti_kernel(cfg)
-    gj_launches = phase_cold_start_gj(cfg)
+    gj_launches, gj_forms = phase_cold_start_gj(cfg)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7); both
     # paths' counts are kept beside them
@@ -918,6 +975,8 @@ def main() -> int:
         row["launches"] = launches.get(name, gj_launches[name])
         row["launches_by_path"] = {"chol_cadence": launches.get(name, 0),
                                    "gj_cold_start": gj_launches[name]}
+        if name == "gj_inverse":
+            row["launches_by_form"] = gj_forms
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -259,6 +259,68 @@ def test_gj_wrappers_on_cpu_run_the_plain_version_without_cholesky():
         kernels.gj_inverse(torch.zeros(2, 3, 4))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_valid,n", [(232, 256), (40, 128), (100, 128)])
+@pytest.mark.parametrize("w", [32, 128])
+def test_gj_inverse_reference_n_valid_equals_padded(w, n_valid, n, dtype):
+    """gj_inverse_reference(M, w, n_valid=) on a matrix whose tail is
+    (1 + shift) I is the padded computation bit for bit, leading block and
+    tail: zeros multiply and add exactly, and a last block narrower than w
+    is widened by a decoupled identity so that every product keeps its
+    length."""
+    M = _padded_spd_batch(28, 2, n, n_valid).to(
+        torch.float32 if dtype is np.float32 else torch.float64)
+    full = kernels.gj_inverse_reference(M, w=w)
+    lead = kernels.gj_inverse_reference(M, w=w, n_valid=n_valid)
+    assert torch.equal(full, lead)
+    assert float(lead[0, n - 1, n - 1]) != 0.0
+    assert torch.equal(kernels.gj_inverse(M, n_valid=n_valid),
+                       kernels.gj_inverse_reference(M, n_valid=n_valid))
+    with pytest.raises(ValueError, match="n_valid"):
+        kernels.gj_inverse_reference(M[..., :n - 1, :n - 1], w=w, n_valid=8)
+
+
+def _spd_inverse_uncarried(M, shift=1e-3, deflate=10):
+    """spd_inverse as it was before Mp @ out was carried from one deflation
+    step to the next: three products a step."""
+    n = M.shape[-1]
+    Mp, d = kernels.spd_scale_pad(M)
+    eye_p = torch.eye(Mp.shape[-1], dtype=M.dtype)
+    out = kernels.gj_inverse(Mp + shift * eye_p)
+
+    def resid(X):
+        return torch.amax(torch.abs(Mp @ X - eye_p), dim=(-2, -1))
+
+    r_best = resid(out)
+    for _ in range(deflate):
+        cand = out @ (2.0 * eye_p - Mp @ out)
+        r = resid(cand)
+        fin = torch.isfinite(r)
+        take = (r < r_best) & fin
+        out = torch.where(take[..., None, None], cand, out)
+        r_best = torch.minimum(r_best, torch.where(fin, r, r_best))
+    out = out[..., :n, :n]
+    return out * d[..., :, None] * d[..., None, :]
+
+
+@pytest.mark.parametrize("wexp", [0.0, 1.0, 3.0, 4.0])
+def test_spd_inverse_carried_product_is_bitwise_the_same(wexp):
+    """The IPM spectra of test_spd_inverse_ipm_spectrum_matches_pallas as a
+    batch of two (so that one matrix keeps a candidate where the other does
+    not): carrying Mp @ out along the deflation, and telling gj_inverse where
+    the padding starts, changes no bit of the result."""
+    rng = np.random.default_rng(7)
+    n, m = 232, 400
+    Ms = []
+    for scale in (1.0, 0.25):
+        Gm = (rng.normal(size=(m, n)) / np.sqrt(n)).astype(np.float32)
+        w = (10.0 ** rng.uniform(-wexp * scale, wexp, m)).astype(np.float32)
+        eye = np.eye(n, dtype=np.float32)
+        Ms.append(eye + (Gm.T * w[None, :]) @ Gm + 1e-5 * eye)
+    M = torch.tensor(np.stack(Ms))
+    assert torch.equal(kernels.spd_inverse(M), _spd_inverse_uncarried(M))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [256, 232])
 def test_gj_inverse_kernel_matches_reference_on_card(card, n):
@@ -273,6 +335,20 @@ def test_gj_inverse_kernel_matches_reference_on_card(card, n):
     assert float((X - ref).abs().max() / ref.abs().max()) <= 1e-4
     with pytest.raises(ValueError, match="float32"):
         kernels.gj_inverse(M.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [232, 256])
+def test_gj_inverse_forms_match_reference_on_card(card, n_valid):
+    """[256, 256] with a shifted identity from n_valid on: the resident form
+    (n_valid=232) and the streaming form (256) against the plain version at
+    the kernel's block width, 1e-4 of max|X|; the tail bit for bit."""
+    M = _padded_spd_batch(29, 4, 256, n_valid).to(card)
+    X = kernels.gj_inverse(M, n_valid=n_valid)
+    torch.cuda.synchronize()
+    ref = kernels.gj_inverse_reference(M, w=kernels.GJ_BLOCK)
+    assert float((X - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert torch.equal(X[:, n_valid:], ref[:, n_valid:])
 
 
 @pytest.mark.cuda
@@ -419,21 +495,69 @@ def test_ipm_iter_source_on_host_matches_reference(host_card, do_ns):
     assert float((got[7] - ref[7]).abs().max() / ref[7].abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("n", [64, 96, 40])
-def test_gj_inverse_source_on_host_matches_reference(host_card, n):
+def _padded_spd_batch(seed, B, n, n_valid, shift=1e-3):
+    """What spd_inverse hands to gj_inverse: an SPD leading block of
+    n_valid rows, an identity tail, the shift on all of the diagonal."""
+    M = np.zeros((B, n, n), np.float32)
+    M[:, :n_valid, :n_valid] = _spd_batch(seed, B, n_valid, ridge=1.0)
+    M[:, range(n_valid, n), range(n_valid, n)] = 1.0
+    return torch.tensor(M + np.float32(shift) * np.eye(n, dtype=np.float32))
+
+
+@pytest.mark.parametrize("n,n_valid", [
+    pytest.param(64, None, id="64"), pytest.param(96, None, id="96"),
+    pytest.param(40, None, id="40"),
+    pytest.param(64, 40, id="64-straddling-last-block"),
+    pytest.param(96, 36, id="96-valid-not-multiple-of-8"),
+    pytest.param(96, 64, id="96-tail-is-a-whole-block"),
+    pytest.param(64, 64, id="64-no-tail")])
+def test_gj_inverse_source_on_host_matches_reference(host_card, n, n_valid):
     """csrc/gj_inverse.cu through ops/kernels.py::gj_inverse: the blocked
-    form (n=64, 96: two and three 32-wide blocks) and the scalar form
-    (n=40) against the plain version at the kernel's block width.  The
-    scalar elimination rounds product and difference separately on both
-    sides; the panel products sum in another order: 1e-5 of max|X|."""
-    M = torch.tensor(_spd_batch(24, 2, n, ridge=1.0))
-    before = kernels.gj_inverse.launches
-    X = kernels.gj_inverse(M)
-    assert kernels.gj_inverse.launches == before + 1
+    form (n=64, 96: two and three 32-wide blocks, resident in shared memory
+    at these sizes) and the scalar form (n=40) against the plain version at
+    the kernel's block width.  The scalar elimination rounds product and
+    difference separately on both sides; the panel products sum in another
+    order: 1e-5 of max|X|.  With ``n_valid`` (a shifted identity from there
+    on: a last block that straddles the tail, a valid size that is no
+    multiple of 8, a tail of a whole block, no tail) the result is that of
+    the padded computation, the tail's diagonal bit for bit."""
+    if n_valid is None:
+        M = torch.tensor(_spd_batch(24, 2, n, ridge=1.0))
+    else:
+        M = _padded_spd_batch(24, 2, n, n_valid)
+    form = kernels.gj_form(host_card, n, n_valid or n)
+    assert form == ("scalar" if n == 40 else "resident")
+    before = (kernels.gj_inverse.launches,
+              kernels.gj_inverse.launches_by_form[form])
+    X = kernels.gj_inverse(M, n_valid=n_valid)
+    assert (kernels.gj_inverse.launches,
+            kernels.gj_inverse.launches_by_form[form]) == (
+        before[0] + 1, before[1] + 1)
     ref = kernels.gj_inverse_reference(M, w=kernels.GJ_BLOCK)
     assert float((X - ref).abs().max() / ref.abs().max()) <= 1e-5
     assert float((M @ X - torch.eye(n)).abs().max()) < 1e-4
     assert host_card.bggt_gj_block_width() == kernels.GJ_BLOCK
+    if n_valid is not None:
+        assert torch.equal(X[:, n_valid:], ref[:, n_valid:])
+        assert torch.equal(X[:, :, n_valid:], ref[:, :, n_valid:])
+
+
+@pytest.mark.parametrize("n", [64, 96])
+def test_gj_inverse_streaming_source_on_host(host_card, n):
+    """The streaming form (the one a [256, 256] matrix takes on the card,
+    too large for a block's shared memory) launched by name at small sizes:
+    the same block steps on staged panels, 1e-5 of max|X| from the plain
+    version at the kernel's block width; the wrapper picks it by shape."""
+    M = torch.tensor(_spd_batch(26, 2, n, ridge=1.0))
+    X = torch.empty_like(M)
+    kernels.gj_launch(host_card, None, M, X, n, "streaming")
+    ref = kernels.gj_inverse_reference(M, w=kernels.GJ_BLOCK)
+    assert float((X - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert kernels.gj_form(host_card, 256, 232) == "resident"
+    assert kernels.gj_form(host_card, 256, 233) == "streaming"
+    assert kernels.gj_form(host_card, 256, 256) == "streaming"
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.gj_form(host_card, 1024, 1024)
 
 
 def test_spd_inverse_through_host_kernel(host_card):
@@ -444,6 +568,18 @@ def test_spd_inverse_through_host_kernel(host_card):
     X = kernels.spd_inverse(M)
     assert kernels.gj_inverse.launches == before + 1
     assert float((M @ X - torch.eye(40)).abs().max()) < 1e-4
+
+
+def test_spd_inverse_through_host_kernel_matches_pallas(host_card):
+    """spd_inverse with the host-compiled resident kernel inside (n=40, told
+    that the padding starts at 40) against the JAX package's spd_inverse in
+    interpret mode: both deflate to the float32 floor of a matrix of
+    condition ~40, 1e-4 of max|X| apart at most."""
+    M = _spd_batch(27, 2, 40)
+    got = kernels.spd_inverse(torch.tensor(M)).numpy()
+    ref = np.asarray(pk.spd_inverse(jnp.asarray(M), interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
 
 
 # ---------------------------------------------------------------------------
