@@ -77,4 +77,25 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Lets `kernel` take all the dynamic shared memory a block of the current
+// device may have (the opt-in limit less its static shared memory).  Each
+// launcher calls it once, for its first launch, through a function-local
+// static: no later launch makes an attribute call, so a CUDA graph capture
+// sees the launches alone.
+template <class K>
+inline cudaError_t allow_max_dynamic_smem(K kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&fa, kernel);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - (int)fa.sharedSizeBytes);
+  return rc;
+}
+
 }  // namespace bggt

@@ -530,19 +530,16 @@ BGGT_API int bggt_gj_inverse(const float* M, float* out, int B, int n,
       (form != 1 && form != 2))
     return (int)cudaErrorInvalidValue;
   const int smem = bggt_gj_smem_bytes(form, form == 1 ? n_valid : n);
-  cudaError_t rc;
   if (form == 1) {
-    rc = cudaFuncSetAttribute(bggt::gj_resident_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-    if (rc != cudaSuccess) return (int)rc;
+    static const cudaError_t smem_rc =
+        bggt::allow_max_dynamic_smem(bggt::gj_resident_kernel);
+    if (smem_rc != cudaSuccess) return (int)smem_rc;
     bggt::gj_resident_kernel<<<B, bggt::kBlkThreads, smem, st>>>(M, out, n,
                                                                 n_valid);
   } else {
-    rc = cudaFuncSetAttribute(bggt::gj_streaming_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-    if (rc != cudaSuccess) return (int)rc;
+    static const cudaError_t smem_rc =
+        bggt::allow_max_dynamic_smem(bggt::gj_streaming_kernel);
+    if (smem_rc != cudaSuccess) return (int)smem_rc;
     bggt::gj_streaming_kernel<<<B, bggt::kBlkThreads, smem, st>>>(M, out, n);
   }
   return (int)cudaGetLastError();

@@ -363,10 +363,9 @@ BGGT_API int bggt_gtwg(const float* H, const float* G, const float* W,
                        const float* lam, const float* s, float* out, int B,
                        int m, int n, float reg, float w_lo, float w_hi,
                        int vec, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bggt::gtwg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bggt::kGemmSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t smem_rc =
+      bggt::allow_max_dynamic_smem(bggt::gtwg_kernel);
+  if (smem_rc != cudaSuccess) return (int)smem_rc;
   const int t = (n + bggt::kTile - 1) / bggt::kTile;
   dim3 grid(t * (t + 1) / 2, 1, B);
   bggt::gtwg_kernel<<<grid, bggt::kGemmThreads, bggt::kGemmSmemBytes,
@@ -378,10 +377,9 @@ BGGT_API int bggt_gtwg(const float* H, const float* G, const float* W,
 BGGT_API int bggt_gemm(const float* A, const float* Bm, float* C, int B,
                        int n, float alpha, float diag, int vec,
                        void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bggt::gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bggt::kGemmSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t smem_rc =
+      bggt::allow_max_dynamic_smem(bggt::gemm_kernel);
+  if (smem_rc != cudaSuccess) return (int)smem_rc;
   const int t = (n + bggt::kTile - 1) / bggt::kTile;
   dim3 grid(t, t, B);
   bggt::gemm_kernel<<<grid, bggt::kGemmThreads, bggt::kGemmSmemBytes,

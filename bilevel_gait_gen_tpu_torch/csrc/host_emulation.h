@@ -39,6 +39,20 @@ typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin };
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes;
+};
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 232448;
+  return 0;
+}
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* fa, F) {
+  fa->sharedSizeBytes = 0;
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host emulation"; }
 

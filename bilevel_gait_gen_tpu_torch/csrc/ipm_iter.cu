@@ -605,10 +605,9 @@ BGGT_API int bggt_ipm_iter(const float* H, const float* q, const float* A,
       n > 128 * bggt::kWarps)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = bggt::smem_floats(n, m, p) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bggt::ipm_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t smem_rc =
+      bggt::allow_max_dynamic_smem(bggt::ipm_iter_kernel);
+  if (smem_rc != cudaSuccess) return (int)smem_rc;
   bggt::IpmArgs a{H, q, A, b, G, h, g_active, M, Mi, x, y, lam, s, bx, by,
                   blam, bs, bmerit, done, it, n, m, p, refine_steps,
                   reg_s, tol, tol_r, w_lo, w_hi, eps};

@@ -17,10 +17,11 @@ from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
 from bilevel_gait_gen_tpu_torch.ops import spline
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.consts import const
 
 
 def gravity(dtype: torch.dtype, device=None) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, -9.81], dtype=dtype, device=device)
+    return const((0.0, 0.0, -9.81), dtype, device)
 
 
 @dataclasses.dataclass(frozen=True)

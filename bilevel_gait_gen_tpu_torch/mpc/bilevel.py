@@ -24,6 +24,7 @@ from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory
 from bilevel_gait_gen_tpu_torch.ops import pdip
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.consts import filled
 
 
 def qp_objective(qp: qp_mod.CondensedQP, u: torch.Tensor) -> torch.Tensor:
@@ -93,8 +94,8 @@ def contact_time_step(cfg: MPCConfig, sched: GaitSchedule, grad: torch.Tensor,
     g = grad.reshape(B, -1)
     c_scale = torch.clamp_min(torch.amax(torch.abs(g), dim=-1), 1.0)
     g = g / c_scale[:, None]
-    trust = torch.as_tensor(cfg.trust_region if trust is None else trust,
-                            dtype=dtype, device=dev).expand(B)
+    trust = filled(cfg.trust_region if trust is None else trust, (B,),
+                   dtype, dev)
 
     past = b <= t0[:, None, None]
     inf = torch.full((), float("inf"), dtype=dtype, device=dev)
@@ -114,12 +115,11 @@ def contact_time_step(cfg: MPCConfig, sched: GaitSchedule, grad: torch.Tensor,
     beq = torch.zeros(B, n, dtype=dtype, device=dev)
 
     # dwell polytope per EE: d_i - d_{i+1} <= (b_{i+1} - b_i) - min_dwell
-    rows = [e * P1 + i for e in range(E) for i in range(P1 - 1)]
-    G_ord = torch.zeros(len(rows), n, dtype=dtype, device=dev)
-    r_idx = torch.arange(len(rows), device=dev)
-    c_idx = torch.tensor(rows, device=dev)
-    G_ord[r_idx, c_idx] = 1.0
-    G_ord[r_idx, c_idx + 1] = -1.0
+    # row r = e (P1 - 1) + i: +1 at column e P1 + i, -1 at the next
+    r_idx = torch.arange(E * (P1 - 1), device=dev)
+    c_idx = (r_idx + torch.div(r_idx, P1 - 1, rounding_mode="floor"))[:, None]
+    cols_n = torch.arange(n, device=dev)
+    G_ord = ((cols_n == c_idx).to(dtype) - (cols_n == c_idx + 1).to(dtype))
     gap = (b[..., 1:] - b[..., :-1]).reshape(B, -1)
     nxt_pinned = pinned.reshape(B, E, P1)[..., 1:].reshape(B, -1)
     dwell = torch.where(nxt_pinned, zero, cfg.min_dwell * one)
@@ -319,8 +319,8 @@ def gait_opt_update(cfg: MPCConfig, params: SRBParams,
     set_fp32_precision()
     dtype, dev = x0_man.dtype, x0_man.device
     B = x0_man.shape[0]
-    trust_in = torch.as_tensor(cfg.trust_region if trust is None else trust,
-                               dtype=dtype, device=dev).expand(B)
+    trust_in = filled(cfg.trust_region if trust is None else trust, (B,),
+                      dtype, dev)
 
     st1, stats, ext = solver_mod.solve_step(cfg, params, state, x0_man, t0,
                                             ee_pos0, x_des_tan,

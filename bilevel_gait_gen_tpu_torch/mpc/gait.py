@@ -13,6 +13,7 @@ import torch
 from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.consts import filled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +168,7 @@ def hold_for_flight(sched: GaitSchedule, measured: torch.Tensor,
     shifts later by ``dt_slip`` (a time translation of the schedule)."""
     b = sched.bounds
     airborne = ~torch.any(measured, dim=-1)
-    slip = torch.as_tensor(dt_slip, dtype=b.dtype, device=b.device)
+    slip = filled(dt_slip, airborne.shape, b.dtype, b.device)
     shift = torch.where(airborne, slip, torch.zeros_like(slip))
     return GaitSchedule(bounds=b + shift[..., None, None])
 

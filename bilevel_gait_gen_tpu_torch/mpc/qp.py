@@ -24,6 +24,7 @@ from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory, ravel_u
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
 from bilevel_gait_gen_tpu_torch.ops import spline
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.consts import const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +43,8 @@ class CondensedQP:
 def friction_pyramid(mu: float, *, dtype: torch.dtype,
                      device=None) -> torch.Tensor:
     """4x3 pyramid rows F f <= 0: +-fx - mu fz, +-fy - mu fz."""
-    return torch.tensor([[1.0, 0.0, -mu], [-1.0, 0.0, -mu],
-                         [0.0, 1.0, -mu], [0.0, -1.0, -mu]],
-                        dtype=dtype, device=device)
+    return const(((1.0, 0.0, -mu), (-1.0, 0.0, -mu),
+                  (0.0, 1.0, -mu), (0.0, -1.0, -mu)), dtype, device)
 
 
 def _sample_times(bounds_ee: torch.Tensor, cfg: MPCConfig) -> torch.Tensor:
@@ -181,7 +181,7 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
     c_stack = torch.stack(c_list, dim=1)                    # [B, N+1, 12]
 
     # ---- cost ------------------------------------------------------------
-    qdiag = torch.tensor(cfg.q_diag, dtype=dtype, device=dev)
+    qdiag = const(cfg.q_diag, dtype, dev)
     Qk = (qdiag + cfg.diag_reg).expand(N + 1, 12)
     wk = (-qdiag * x_des_tan)[:, None, :].expand(B, N + 1, 12)
     SQ = S_stack * Qk[:, :, None]
@@ -207,15 +207,15 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
     zpad = torch.zeros(B, G_cone.shape[1], n_u - nf, dtype=dtype, device=dev)
     G_cone = torch.cat([G_cone, zpad], dim=-1)
 
-    zsel = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    zsel = const((0.0, 0.0, 1.0), dtype, dev)
     fz_c = torch.einsum('besfnkw,c->besfnkcw', wf_s, zsel)
     G_fz = _block_diag_ee(fz_c, 1, 4).reshape(B, -1, nf)
     G_fz = torch.cat([G_fz, torch.zeros(B, G_fz.shape[1], n_u - nf,
                                         dtype=dtype, device=dev)], dim=-1)
 
     # EE box rows: foot_xy - com_xy per node >= ee_node_start
-    ks = list(range(cfg.ee_node_start, N + 1))
-    Nk = len(ks)
+    ks = slice(cfg.ee_node_start, N + 1)
+    Nk = N + 1 - cfg.ee_node_start
     wp_k = wp_n[:, ks]                                        # [B, Nk, E, NF]
     eye2 = torch.eye(2, dtype=dtype, device=dev)
     bw = torch.einsum('bkem,cd->bkecmd', wp_k, eye2)
@@ -292,8 +292,7 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
         t_st = bounds[..., 1::2] - bounds[..., 0:-1:2]
         t_stance = torch.cat([t_st, torch.ones_like(t_st[..., :1])],
                              dim=-1)[..., :NT]
-        vg = torch.as_tensor(cfg.raibert_vel_gain, dtype=dtype,
-                             device=dev).expand(2)
+        vg = const(cfg.raibert_vel_gain, dtype, dev).expand(2)
         kappa = vg * t_stance[..., None] / (2.0 * params.mass)  # [B,E,NT,2]
         wp_r = spline.foothold_weights(bounds[:, :, None, :], td_all)
         rw = torch.einsum('bejm,cd->bejcmd', wp_r, eye2)
@@ -305,8 +304,8 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
         c_nodes = c_stack[b_ix, nodes]                        # [B, E, NT, 12]
         A_raib = A_r_u - (S_nodes[..., 0:2, :] + kappa[..., None]
                           * S_nodes[..., 3:5, :]).reshape(B, E * NT * 2, n_u)
-        hip_r = params.hip_offset_raw.to(dtype) * torch.tensor(
-            cfg.raibert_hip_scale, dtype=dtype, device=dev)
+        hip_r = params.hip_offset_raw.to(dtype) * const(
+            cfg.raibert_hip_scale, dtype, dev)
         h_des = x_des_tan[:, None, None, 3:5]
         b_raib = (hip_r[None, :, None, :] - kappa * h_des
                   + c_nodes[..., 0:2] + kappa * c_nodes[..., 3:5]
@@ -386,7 +385,7 @@ def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
     S_stack, c_stack = torch.stack(S_list), torch.stack(c_list)
 
     # ---- cost -------------------------------------------------------------
-    qdiag = torch.tensor(cfg.q_diag, dtype=dtype, device=dev)
+    qdiag = const(cfg.q_diag, dtype, dev)
     Qk = (qdiag + cfg.diag_reg).expand(N + 1, 12)
     wk = (-qdiag * x_des_tan).expand(N + 1, 12)
     Sf = S_stack.reshape((N + 1) * 12, n_u)
@@ -405,7 +404,7 @@ def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
     pyr = friction_pyramid(cfg.friction_coef, dtype=dtype, device=dev)
     FB, S_slots = cfg.samples_per_stance, cfg.num_stance_slots
     ts = _sample_times(bounds, cfg)                           # [E, S, FB]
-    ks = list(range(cfg.ee_node_start, N + 1))
+    ks = slice(cfg.ee_node_start, N + 1)
 
     def ineq_vals(u):
         fn, fh = unravel(u)
@@ -430,8 +429,8 @@ def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
     n_cone, n_fz = E * S_slots * FB * 4, E * S_slots * FB
     hip = params.hip_offset.to(dtype)
     half_box = (ee_box_size / 2).expand(E, 2)
-    ub = (hip + half_box).reshape(-1).repeat(len(ks))
-    lb = (hip - half_box).reshape(-1).repeat(len(ks))
+    ub = (hip + half_box).reshape(-1).repeat(N + 1 - cfg.ee_node_start)
+    lb = (hip - half_box).reshape(-1).repeat(N + 1 - cfg.ee_node_start)
     v_fz = v0[n_cone:n_cone + n_fz]
     G = torch.cat([G_half[:n_cone], G_half[n_cone:n_cone + n_fz],
                    -G_half[n_cone:n_cone + n_fz], G_half[n_cone + n_fz:],
@@ -451,8 +450,7 @@ def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
         t_st = bounds[:, 1::2] - bounds[:, 0:-1:2]
         t_stance = torch.cat([t_st, torch.ones_like(t_st[:, :1])],
                              dim=-1)[:, :NT]
-        vg = torch.as_tensor(cfg.raibert_vel_gain, dtype=dtype,
-                             device=dev).expand(2)
+        vg = const(cfg.raibert_vel_gain, dtype, dev).expand(2)
         kappa = vg * t_stance[..., None] / (2.0 * params.mass)  # [E, NT, 2]
 
     def foot_xy(fh, tt):
@@ -479,8 +477,8 @@ def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
     mask_parts = [torch.ones(2 * E, dtype=torch.bool, device=dev),
                   torch.repeat_interleave(td_active, 2)]
     if cfg.raibert:
-        hip_r = params.hip_offset_raw.to(dtype) * torch.tensor(
-            cfg.raibert_hip_scale, dtype=dtype, device=dev)
+        hip_r = params.hip_offset_raw.to(dtype) * const(
+            cfg.raibert_hip_scale, dtype, dev)
         hip_b = (hip_r[:, None, :] - kappa * x_des_tan[3:5]).reshape(-1)
         b_parts.append(hip_b - ev0[4 * E:])
         mask_parts.append(torch.repeat_interleave(
@@ -502,7 +500,7 @@ def cost_value(cfg: MPCConfig, xs_tan: torch.Tensor, u: torch.Tensor,
     """Exact QP cost at (states [..., N+1, 12], inputs [..., n_u]) with
     x_des_tan [..., 12]."""
     dtype, dev = u.dtype, u.device
-    qd = torch.tensor(cfg.q_diag, dtype=dtype, device=dev)
+    qd = const(cfg.q_diag, dtype, dev)
     qdiag = qd + cfg.diag_reg
     w = -qd * x_des_tan
     state_cost = (0.5 * torch.sum(qdiag * xs_tan * xs_tan, dim=(-1, -2))

@@ -24,6 +24,7 @@ from bilevel_gait_gen_tpu_torch.mpc.trajectory import (Trajectory,
 from bilevel_gait_gen_tpu_torch.ops import pdip
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+from bilevel_gait_gen_tpu_torch.utils.consts import const, filled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,7 +194,7 @@ def solve_step(cfg: MPCConfig, params: SRBParams, state: SolverState,
                           f_nodes=fn_new, footholds=fh_new, sched=traj.sched)
 
     # ------- EE-box relaxation ladder -------------------------------------
-    nominal = torch.tensor(cfg.ee_box_size, dtype=dtype, device=dev)
+    nominal = const(cfg.ee_box_size, dtype, dev)
     ee_box = torch.where(good[:, None],
                          torch.maximum(nominal, state.ee_box - 0.05),
                          state.ee_box + 0.05)
@@ -235,8 +236,7 @@ def create_initial_run(cfg: MPCConfig, params: SRBParams, state: SolverState,
     (``ipm_exact_every=1``: Newton-Schulz tracking from a stale inverse
     diverges on these cold QPs).  ``t0`` is a scalar or [B].  Returns the
     final state and the last iteration's stats."""
-    t0 = torch.as_tensor(t0, dtype=x0_man.dtype, device=x0_man.device)
-    t0 = t0.expand(x0_man.shape[0])
+    t0 = filled(t0, x0_man.shape[:1], x0_man.dtype, x0_man.device)
     cfg_init = dataclasses.replace(cfg, ipm_exact_every=1)
     stats = None
     for _ in range(cfg.init_run_iters):

@@ -45,7 +45,12 @@ Ports of the three TPU kernels of
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version only on a CPU tensor; there is no fallback.  Each keeps
 a plain integer count of its launches in ``<wrapper>.launches``
-(``gj_inverse`` also by form, in ``gj_inverse.launches_by_form``).
+(``gj_inverse`` also by form, in ``gj_inverse.launches_by_form``).  The
+launches go to ``torch.cuda.current_stream()``, so a CUDA graph capture
+takes them; a launch made under capture counts once, and the graph's
+replays do not move the counts (``utils/graphs.Graphed`` keeps those).  A
+launcher sets its kernel's shared-memory limit once, at its first launch,
+and makes no other call than the launch after that.
 
 The CUDA sources are compiled with ``nvcc`` for ``sm_90a`` at first use
 (one compiler per source file, side by side) into
@@ -612,6 +617,12 @@ def spd_inverse(M: torch.Tensor, *, shift: float = 1e-3,
             r_best = torch.minimum(r_best, torch.where(fin, r, r_best))
     out = out[..., :n, :n]
     return out * d[..., :, None] * d[..., None, :]
+
+
+def launch_counts() -> dict[str, int]:
+    """The launch count of each wrapper, by kernel name."""
+    return {"gtwg": gtwg.launches, "ipm_iter": ipm_iter.launches,
+            "gj_inverse": gj_inverse.launches}
 
 
 def reset_launch_counts() -> None:

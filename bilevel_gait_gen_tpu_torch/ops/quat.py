@@ -34,7 +34,8 @@ def conjugate(q: torch.Tensor) -> torch.Tensor:
 
 
 def identity(*, dtype: torch.dtype, device=None) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    return torch.cat([torch.zeros(3, dtype=dtype, device=device),
+                      torch.ones(1, dtype=dtype, device=device)])
 
 
 def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

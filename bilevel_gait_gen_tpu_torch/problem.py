@@ -30,6 +30,11 @@ class Problem:
     feets: torch.Tensor          # [B, E, 3] measured feet
     x_des: torch.Tensor          # [B, 12] tracking target (tangent)
 
+    def loop_args(self):
+        """The arguments after ``params`` of ``solver.solve_step`` and of
+        the ``mpc/cadence.py`` loops: (states, x0s, t0, feets, x_des)."""
+        return self.states, self.x0s, self.t0, self.feets, self.x_des
+
 
 def perturbations(batch: int, seed: int = 0) -> np.ndarray:
     """[batch, 13] state perturbations, 0.02 * N(0, 1), none on the
@@ -41,9 +46,11 @@ def perturbations(batch: int, seed: int = 0) -> np.ndarray:
 
 def make_problem(cfg: MPCConfig, batch: int, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 stretch: float = 1.0) -> Problem:
-    """``stretch`` scales every phase boundary (the mistimed schedules of
-    the bench's A/B grid).  ``device`` defaults to the GPU."""
+                 push_vx: float = 0.0, stretch: float = 1.0) -> Problem:
+    """``push_vx`` [m/s] starts the robot with that forward velocity (the
+    linear momentum mass * push_vx); ``stretch`` scales every phase boundary
+    (the mistimed schedules of the bench's A/B grid).  ``device`` defaults
+    to the GPU."""
     device = resolve_device(device)
     model = a1.make_a1(device=device)
     q0 = torch.tensor(a1.stand_config(), device=device).to(dtype)
@@ -51,6 +58,8 @@ def make_problem(cfg: MPCConfig, batch: int, *, device=None,
     x0 = srb.reconstruct_state(params, q0,
                                torch.zeros(model.nv, dtype=dtype,
                                            device=device))
+    if push_vx:
+        x0[3] = params.mass * push_vx
     feet0 = rbd.ee_positions(model, q0).to(dtype)
     sched = gait.make_trot(cfg, dtype=dtype, device=device)
     if stretch != 1.0:

@@ -1,0 +1,141 @@
+"""CUDA graphs of the port's loops: the counterpart of ``jax.jit`` on the
+bench path.
+
+``bench.py`` runs a cadence cycle (``FREQ - 1`` real-time iterations and a
+gait update) as one jitted dispatch.  Run eagerly, the same cycle is some
+50,000 kernel launches, and the card waits on the host between them.
+:class:`Graphed` captures such a function once as one
+``torch.cuda.CUDAGraph`` and replays it: one launch from the host a call.
+
+Arguments and results are pytrees: tensors inside tuples, lists, dicts and
+dataclasses (``SolverState``, ``GaitOptResult``); anything else is a
+constant of the capture.  The graph reads its inputs from static copies of
+the example arguments and writes its results to the tensors the captured
+call returned, so each replay overwrites the last one's results.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from bilevel_gait_gen_tpu_torch.ops import kernels
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` applied to the tensors of ``tree`` (and to the tensors at the
+    same places of the trees ``rest``), rebuilt with the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return tree
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def copy_into(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, a tree of the same
+    structure and shapes."""
+    d, s = tree_leaves(dst), tree_leaves(src)
+    if len(d) != len(s):
+        raise ValueError(f"{len(s)} tensors for {len(d)} static buffers")
+    for a, b in zip(d, s):
+        if a.shape != b.shape:
+            raise ValueError(f"shape {tuple(b.shape)} for a static buffer of "
+                             f"shape {tuple(a.shape)}")
+        a.copy_(b)
+
+
+class Graphed:
+    """``fn(*args)`` captured once as a CUDA graph, replayed at each call.
+
+    ``fn`` runs twice on a side stream first (this builds the
+    kernels and creates the cuBLAS and cuSOLVER handles and workspaces
+    before the capture), then once under capture over static copies of
+    ``example_args`` (:attr:`args`).  A call copies the arguments it is
+    given into those buffers (an argument that *is* its static buffer is
+    not copied), replays the graph and returns the captured results
+    (:attr:`out`).
+
+    ``carry`` maps an argument's index to a function of the results: after
+    ``fn``, the graph copies that part of the results into the argument's
+    static buffers, so that the argument chains from replay to replay
+    without a copy from the host side (``carry={0: lambda out: out[0]}``
+    for a function that returns its new state first).
+
+    Every tensor of ``example_args`` must lie on the card: a CPU tensor
+    raises.  An error during the capture raises too; nothing falls back to
+    the eager call.  :attr:`captured_launches` holds the launches of each
+    hand-written kernel made during the capture (the wrappers' counters do
+    not move when the graph replays); :attr:`replays` counts the replays.
+    """
+
+    def __init__(self, fn: Callable, *example_args,
+                 carry: dict[int, Callable] | None = None):
+        leaves = tree_leaves(example_args)
+        if not leaves:
+            raise ValueError("Graphed needs at least one tensor argument")
+        for t in leaves:
+            if t.device.type != "cuda":
+                raise ValueError(f"Graphed captures CUDA work; an argument "
+                                 f"lies on {t.device}")
+        self.fn = fn
+        self.args = tree_map(lambda t: t.detach().clone(), example_args)
+        self.carry = dict(carry or {})
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                fn(*self.args)
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_counts()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.out = fn(*self.args)
+                for i, pick in self.carry.items():
+                    copy_into(self.args[i], pick(self.out))
+        except Exception as exc:
+            exc.add_note(f"while capturing {getattr(fn, '__name__', fn)} "
+                         "as a CUDA graph")
+            raise
+        after = kernels.launch_counts()
+        self.captured_launches = {k: after[k] - before[k] for k in after}
+        self.replays = 0
+
+    def __call__(self, *args):
+        if args:
+            if len(args) != len(self.args):
+                raise TypeError(f"{len(args)} arguments for "
+                                f"{len(self.args)}")
+            for a, static in zip(args, self.args):
+                if a is not static:
+                    copy_into(static, a)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+    def replayed_launches(self) -> dict[str, int]:
+        """The kernels' launches made by the replays so far."""
+        return {k: v * self.replays for k, v in self.captured_launches.items()}
+
+    def close(self) -> None:
+        """Free the graph and its memory pool (once nothing else holds its
+        results)."""
+        self.graph.reset()
+        self.out = self.args = None

@@ -13,11 +13,13 @@ from __future__ import annotations
 
 import torch
 
+from bilevel_gait_gen_tpu_torch.utils.consts import const
+
 
 def _as(x: torch.Tensor, v) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v
-    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    return const(v, x.dtype, x.device)
 
 
 def maximum(x: torch.Tensor, v) -> torch.Tensor:

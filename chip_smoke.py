@@ -23,9 +23,13 @@ it on the way:
    handed its M, with its parts (M, the Newton-Schulz products, the
    iteration kernel) and ``gtwg`` and the Newton-Schulz product at both
    batches of the path (512 lanes, 128 polish problems);
-4. the slice: one warm-up and two timed cadence cycles; every kernel of the
-   path must have launched during it, ``gtwg`` and ``ipm_iter`` six times
-   a cycle each;
+4. the slice: one warm-up and two timed cadence cycles
+   (``mpc/cadence.cycle``, eagerly); every kernel of the path must have
+   launched during it, ``gtwg`` and ``ipm_iter`` six times a cycle each;
+   then the same cycle and one RTI captured as CUDA graphs
+   (``utils/graphs.Graphed``), replayed from the same state and held to
+   the eager run bit for bit, six launches of each kernel counted at the
+   capture, eager and graphed ms a cycle printed;
 5. card against CPU: two scenarios of the same cadence on the card (float32)
    and on the CPU (float64): the embedded RTI's cost within 1%, its QP
    objective and the winning lane's within what float32 allows;
@@ -60,29 +64,20 @@ from pathlib import Path
 
 import numpy as np
 
+from bilevel_gait_gen_tpu_torch.ops.kernel_checks import (
+    TOL_GTWG, bound_ms, check, check_gtwg, clone_args, compare_ipm_iter,
+    cuda_ms, fresh_state, gtwg_work, rel_err, sweep_work, time_gemms)
+
 REPO = Path(__file__).resolve().parent
 FREQ = 10           # one gait update per FREQ real-time iterations
 BATCH = 128
-TOL_GTWG = 1e-5     # max|dM| / max|M|: float32 sums of 1232 products
-TOL_ITER = 1e-3     # iterate max|d| / max|ref| after one float32 sweep
-                    # (or 2x the plain version's float32-vs-float64 gap)
-TOL_ITER_CAP = 0.05
 TOL_OBJ = 0.01      # float32 card vs float64 CPU costs
 TOL_GJ = 1e-4       # max|dX| / max|X| of the Gauss-Jordan inverse (or 2x the
                     # plain version's float32-vs-float64 gap; the panel
                     # products sum in another order and the matrices are
                     # conditioned up to ~n / shift)
 TOL_GJ_CAP = 0.25
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# float32 outside the tensor cores, and device-memory bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 DEVICE = "cuda"
-
-
-def check(cond: bool, what: str) -> None:
-    if not cond:
-        raise RuntimeError(f"check failed: {what}")
 
 
 def bench_config():
@@ -90,41 +85,6 @@ def bench_config():
     from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
     return MPCConfig(ipm_iters=10, ipm_exact_every=5, ipm_grad_polish=2,
                      qp_kernel="xla").validate()
-
-
-def cuda_ms(fn, reps: int = 10, warm: int = 2, inner: int = 1) -> float:
-    """Median over ``reps`` timings of one call, each between two CUDA
-    events (of ``inner`` calls in a row, divided by ``inner``: for a bare
-    launch, whose host side would otherwise show in the window)."""
-    import torch
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return float(np.median(times))
-
-
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of operations over the
-    float32 peak and bytes (each input read once, each output written once)
-    over the memory rate."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def rel_err(got, ref) -> float:
-    import torch
-    scale = float(torch.amax(torch.abs(ref)))
-    return float(torch.amax(torch.abs(got - ref))) / max(scale, 1e-30)
 
 
 # ---------------------------------------------------------------------------
@@ -193,31 +153,6 @@ def lane_qps(cfg, device):
                            lanes(pr.feets), lanes(pr.x_des), lanes(st.ee_box))
 
 
-def clone_args(args):
-    return [a.clone() if hasattr(a, "clone") else
-            tuple(b.clone() for b in a) if isinstance(a, tuple) else a
-            for a in args]
-
-
-def fresh_state(args):
-    """A captured ipm_iter call with clones of what the sweep writes (x, y,
-    lam, s, it and the best iterate) and the read-only operands as they
-    are."""
-    out = list(args)
-    for i in (7, 8, 9, 10, 12):
-        out[i] = args[i].clone()
-    out[13] = tuple(b.clone() for b in args[13])
-    return out
-
-
-def to_float64(args):
-    """Float64 copies of a captured ipm_iter call (for the plain version)."""
-    return [tuple(b.double() if b.is_floating_point() else b.clone()
-                  for b in a) if isinstance(a, tuple)
-            else (a.double() if a.is_floating_point() else a.clone())
-            if hasattr(a, "clone") else a for a in args]
-
-
 def capture_sweeps(qp, cfg):
     """Solve the lane QPs on the fused path and keep clones of the
     arguments of kernels.ipm_iter at every sweep, the M handed over on an
@@ -244,40 +179,6 @@ def capture_sweeps(qp, cfg):
     finally:
         pdip.kernels = kernels
     return calls
-
-
-def check_gtwg(H, G, lam, s, w_hi, reg, label):
-    """gtwg against its plain version; returns (rel, abs) errors."""
-    import torch
-    from bilevel_gait_gen_tpu_torch.ops import kernels
-    M = kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi, reg=reg)
-    W = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
-    ref = kernels.gtwg_reference(H, G, W, reg)
-    torch.cuda.synchronize()
-    err = rel_err(M, ref)
-    check(err <= TOL_GTWG, f"gtwg {label} max|dM|/max|M| {err:.3e}")
-    return err, float(torch.amax(torch.abs(M - ref)))
-
-
-def time_gemms(H, G, lam, s, w_hi, reg):
-    """gtwg through its wrapper, the PyTorch call for the same function
-    (baddbmm on the scaled G), the Newton-Schulz product as a bare launch
-    and its PyTorch call, at the batch of the operands: milliseconds."""
-    import torch
-    from bilevel_gait_gen_tpu_torch.ops import kernels
-    lib, _ = kernels.build()
-    Wl = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
-    X, Y = H, torch.empty_like(H)
-    eye = torch.eye(H.shape[-1], device=H.device).expand_as(H)
-    return dict(
-        gtwg=cuda_ms(lambda: kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi,
-                                          reg=reg)),
-        gtwg_library=cuda_ms(
-            lambda: torch.baddbmm(H, (G * Wl[..., None]).mT, G)),
-        ns_gemm=cuda_ms(lambda: kernels.ns_gemm_launch(
-            lib, kernels._stream(), X, X, Y, -1.0, 2.0), inner=4),
-        ns_gemm_library=cuda_ms(
-            lambda: torch.baddbmm(eye, X, X, beta=2.0, alpha=-1.0)))
 
 
 def phase_kernels(cfg):
@@ -328,11 +229,9 @@ def phase_kernels(cfg):
     plain = cuda_ms(lambda: kernels.gtwg_reference(H, G, Wl, reg))
     plain128 = cuda_ms(lambda: kernels.gtwg_reference(
         H[:BATCH], G[:BATCH], Wl[:BATCH], reg))
-    # the least work: the triangle of the symmetric product, B m n (n + 1)
+    # the least work: the triangle of the symmetric product
     Bl, ml, nl = G.shape
-    gtwg_flops = 1.0 * Bl * ml * nl * (nl + 1)
-    gtwg_bytes = 4.0 * Bl * (2 * nl * nl + ml * nl + 2 * ml)
-    bnd, by = bound_ms(gtwg_flops, gtwg_bytes)
+    bnd, by = bound_ms(*gtwg_work(Bl, ml, nl))
     ns_flops = 2.0 * Bl * nl ** 3
     ns_bnd, _ = bound_ms(ns_flops, 4.0 * Bl * 3 * nl * nl)
     print(f"[kernel] gtwg {shape}: max|dM|/max|M| {err:.3e}; ragged "
@@ -362,33 +261,17 @@ def phase_kernels(cfg):
                      ns_gemm_library_ms_batch128=t128["ns_gemm_library"]))
 
     # ipm_iter: every lane sweep (exact refresh at 0-1, handed its M as the
-    # solver hands it; Newton-Schulz at 2-3).  The tolerance: 1e-3 of
-    # max|ref|, or twice the plain version's own distance to the same sweep
-    # computed in float64 (M too) where float32 is less accurate than that
-    # (cold-start sweeps on these matrices are), never more than
-    # TOL_ITER_CAP.
+    # solver hands it; Newton-Schulz at 2-3), with compare_ipm_iter's
+    # tolerances
     worst_abs = 0.0
     for i, (args, kw) in enumerate(calls):
-        kw64 = {k: v for k, v in kw.items() if k != "M"}
-        got = kernels.ipm_iter(*clone_args(args), **kw)
-        ref = kernels.ipm_iter_reference(*clone_args(args), **kw)
-        r64 = kernels.ipm_iter_reference(*to_float64(args), **kw64)
-        torch.cuda.synchronize()
-        errs = []
-        for name, a, r, d in zip(("x", "y", "lam", "s"), got[:4], ref[:4],
-                                 r64[:4]):
-            e, e64 = rel_err(a, r), rel_err(r, d.float())
-            tol = max(TOL_ITER, min(2.0 * e64, TOL_ITER_CAP))
-            check(e <= tol,
-                  f"ipm_iter sweep {i} {name} rel {e:.3e} > {tol:.3e}")
-            errs.append(f"{name} {e:.1e} (f32 vs f64 {e64:.1e})")
-            worst_abs = max(worst_abs, float(torch.amax(torch.abs(a - r))))
-        check(torch.equal(got[4], ref[4]), f"ipm_iter sweep {i}: done")
-        check(torch.equal(got[5], ref[5]), f"ipm_iter sweep {i}: it")
-        moved = int((got[0] != args[7]).any(-1).sum())
+        c = compare_ipm_iter(args, kw, f"sweep {i}")
+        worst_abs = max(worst_abs, c["max_abs_err"])
+        errs = [f"{name} {e:.1e} (f32 vs f64 {e64:.1e})"
+                for name, e, e64, _ in c["errs"]]
         print(f"[kernel] ipm_iter sweep {i} do_ns={int(args[15])} {shape}: "
-              f"{', '.join(errs)}; done/it identical; {moved} of "
-              f"{got[0].shape[0]} problems stepped")
+              f"{', '.join(errs)}; done/it identical; {c['stepped']} of "
+              f"{args[7].shape[0]} problems stepped")
 
     # times: the sweep with its Newton-Schulz refresh (sweep 2) and the exact
     # sweep handed its M (sweep 0); only what a sweep writes is cloned inside
@@ -433,17 +316,9 @@ def phase_kernels(cfg):
         M=cuda_ms(launch_m, inner=3), ns_products=cuda_ms(launch_ns, inner=3),
         iteration=cuda_ms(lambda: launch_iteration(Hc.shape[0]), inner=3),
         iteration_batch128=cuda_ms(lambda: launch_iteration(BATCH), inner=3))
-    # least work of a sweep with the Newton-Schulz refresh: the triangle of
-    # M, 2 products per NS step, then the iteration's matrix-vector work (two
-    # directions with one refinement each: ~22 n^2 + 12 m n + 2 p n^2 per
-    # problem); it reads H, G, A, Mi and the vectors once and writes Mi and
-    # the vectors.  The exact sweep handed its M has the last part only and
-    # reads M too.
-    pl_ = args[2].shape[-2]
-    iter_flops = Bl * (22.0 * nl * nl + 12.0 * ml * nl + 2.0 * pl_ * nl * nl)
-    it_flops = gtwg_flops + kw["ns_steps"] * 2 * ns_flops + iter_flops
-    it_bytes = 4.0 * Bl * (3 * nl * nl + ml * nl + pl_ * nl
-                           + 4 * (nl + pl_ + 2 * ml) + 3 * ml)
+    # least work of a sweep (sweep_work)
+    it_flops, iter_flops, it_bytes = sweep_work(Bl, ml, nl, args[2].shape[-2],
+                                                kw["ns_steps"])
     bnd, by = bound_ms(it_flops, it_bytes)
     bnd_exact, by_exact = bound_ms(iter_flops, it_bytes)
     bnd_it128, by_it128 = bound_ms(iter_flops * BATCH / Bl,
@@ -666,28 +541,23 @@ def check_gj_inverse(cfg, lane_qp):
 
 
 def run_cadence(cfg, pr, cycles):
-    """``cycles`` cadence cycles: FREQ-1 RTIs, then one gait update.
-    Returns (state, per-cycle seconds, RTI solved flags, gait results)."""
+    """``cycles`` cadence cycles (``cadence.cycle``: FREQ-1 RTIs, then one
+    gait update), eagerly.  Returns (state, per-cycle seconds, RTI solved
+    flags, gait results)."""
     import torch
-    from bilevel_gait_gen_tpu_torch.mpc import bilevel, solver
+    from bilevel_gait_gen_tpu_torch.mpc import cadence
     st = pr.states
     secs, solved, gres = [], [], []
     for _ in range(cycles):
         if pr.x0s.is_cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        flags = []
-        for _ in range(FREQ - 1):
-            st, stats = solver.solve_step(cfg, pr.params, st, pr.x0s, pr.t0,
-                                          pr.feets, pr.x_des)
-            flags.append(stats.solved)
-        res = bilevel.gait_opt_update(cfg, pr.params, st, pr.x0s, pr.t0,
-                                      pr.feets, pr.x_des)
-        st = res.state
+        st, flags, res, _ = cadence.cycle(cfg, pr.params, st,
+                                          *pr.loop_args()[1:], FREQ)
         if pr.x0s.is_cuda:
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        solved.append(torch.stack(flags))
+        solved.append(flags)
         gres.append(res)
     return st, secs, solved, gres
 
@@ -738,6 +608,100 @@ def phase_slice(cfg):
           f"is warm-up); solved_frac {frac:.4f}; gait accept rate "
           f"{accept:.3f}; all finite {finite}; launches {launches}")
     return launches, frac, cyc
+
+
+def leaf_distances(a, b) -> list[float]:
+    """For each pair of tensors of two result trees: 0 where their bits are
+    the same (NaNs included), else max|a - b| (inf for integers and flags
+    that differ)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_leaves
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+    out = []
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if x.dtype in as_int:
+            same = x.dtype == y.dtype and torch.equal(
+                x.view(as_int[x.dtype]), y.view(as_int[y.dtype]))
+        else:
+            same = torch.equal(x, y)
+        if same:
+            out.append(0.0)
+        elif x.is_floating_point():
+            out.append(float(torch.amax(torch.abs(
+                torch.nan_to_num(x.double()) - torch.nan_to_num(y.double())))))
+        else:
+            out.append(float("inf"))
+    return out
+
+
+def phase_graphs(cfg):
+    """The cadence as CUDA graphs (``utils/graphs.Graphed``).  From one
+    batch-128 state after a warm cycle: one captured cycle and one captured
+    RTI, each replayed and held to the eager ``cadence.cycle`` /
+    ``cadence.rti_block`` on the same state and inputs bit for bit on every
+    output; where two eager runs differ themselves, the replay is held to
+    their distance instead.  The capture counts the kernels' launches: six
+    of gtwg and six of ipm_iter a cycle.  Eager and graphed ms a cycle are
+    printed.  Returns the cycle's captured launches."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import cadence
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
+    pr = make_problem(cfg, BATCH, device=DEVICE, dtype=torch.float32)
+    st = run_cadence(cfg, pr, cycles=1)[0]
+    rest = pr.loop_args()[1:]
+    loops = {
+        "cycle": lambda s, *a: cadence.cycle(cfg, pr.params, s, *a, FREQ),
+        "RTI": lambda s, *a: cadence.rti_block(cfg, pr.params, s, *a, 1)}
+    launches, lines = None, []
+    for name, fn in loops.items():
+        t0 = time.perf_counter()
+        g = Graphed(fn, st, *rest)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        eager1 = fn(st, *rest)
+        eager2 = fn(st, *rest)
+        got = g()
+        torch.cuda.synchronize()
+        d_ge = leaf_distances(got, eager1)
+        d_ee = leaf_distances(eager2, eager1)
+        bitwise = not any(d_ge)
+        if not bitwise:
+            check(any(d_ee), f"graphed {name}: {sum(map(bool, d_ge))} "
+                  f"outputs differ from the eager run (max {max(d_ge):.3e}) "
+                  f"though two eager runs agree bit for bit")
+            check(all(g_ <= e_ for g_, e_ in zip(d_ge, d_ee)),
+                  f"graphed {name} further from eager than two eager runs")
+        eager_ms, graph_ms = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st, *rest)
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            g()
+            torch.cuda.synchronize()
+            graph_ms.append((time.perf_counter() - t0) * 1e3)
+        if name == "cycle":
+            launches = dict(g.captured_launches)
+            for kname in ("gtwg", "ipm_iter"):
+                check(launches[kname] == 6, f"the captured cycle launches "
+                      f"{kname} {launches[kname]} times, not 6")
+        lines.append(
+            f"{name}: capture (2 warm-up calls included) {capture_s:.1f} s; "
+            f"replay vs eager "
+            + ("bit for bit on all" if bitwise else
+               f"within the eager-vs-eager distance on all")
+            + f" {len(d_ge)} outputs (eager vs eager: "
+            f"{sum(map(bool, d_ee))} differ); ms eager "
+            f"{', '.join(f'{t:.1f}' for t in eager_ms)}, graphed "
+            f"{', '.join(f'{t:.1f}' for t in graph_ms)}"
+            + (f"; captured launches {launches}" if name == "cycle" else ""))
+        g.close()
+        del g
+    print(f"[graphs] batch {BATCH}: " + "; ".join(lines), flush=True)
+    return launches
 
 
 def phase_card_vs_cpu(cfg):
@@ -964,6 +928,7 @@ def main() -> int:
     cfg = bench_config()
     rows = phase_kernels(cfg)
     launches, _, _ = phase_slice(cfg)
+    phase_graphs(cfg)
     phase_card_vs_cpu(cfg)
     phase_rti_kernel(cfg)
     gj_launches, gj_forms = phase_cold_start_gj(cfg)

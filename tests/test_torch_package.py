@@ -32,7 +32,11 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch",
     "bilevel_gait_gen_tpu_torch.mpc.bilevel",
     "bilevel_gait_gen_tpu_torch.problem",
+    "bilevel_gait_gen_tpu_torch.mpc.cadence",
+    "bilevel_gait_gen_tpu_torch.utils.graphs",
+    "bilevel_gait_gen_tpu_torch.ops.kernel_checks",
     "chip_smoke",
+    "bench_torch",
 ])
 def test_port_never_imports_jax(module):
     """Importing the port loads neither jax nor the JAX package."""
@@ -45,12 +49,13 @@ def test_port_never_imports_jax(module):
 def _port_sources():
     root = Path(__file__).resolve().parent.parent
     return sorted((root / "bilevel_gait_gen_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py"]
+        root / "chip_smoke.py", root / "bench_torch.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(p.parents[1]))
-                         if p.name != "chip_smoke.py" else p.name)
+                         if p.name not in ("chip_smoke.py", "bench_torch.py")
+                         else p.name)
 def test_port_source_names_no_jax_import(path):
     """No import statement of any port source (function-level ones
     included) names jax or the JAX package; the package name followed by
