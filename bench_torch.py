@@ -162,152 +162,19 @@ def state_of(out):
 # the kernels at the shapes of the run
 # ---------------------------------------------------------------------------
 
-def record_kernel_calls(fn) -> dict:
-    """Run ``fn`` with a recording stand-in for the kernels module in
-    ``ops/pdip.py``; returns, per kernel and shape, clones of the arguments
-    of the first call (``gtwg`` as the exact sweeps call it, ``ipm_iter``
-    by refresh and with or without the M handed over)."""
-    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
-    from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
-    calls = {}
-
-    def keep(key, args, kw):
-        if key not in calls:
-            calls[key] = (kc.clone_args(args),
-                          {k: v.clone() if hasattr(v, "clone") else v
-                           for k, v in kw.items()})
-
-    class Recorder:
-        def __getattr__(self, name):
-            return getattr(kernels, name)
-
-        def gtwg(self, H, G, *args, **kw):
-            keep(("gtwg", tuple(G.shape)), (H, G), kw)
-            return kernels.gtwg(H, G, *args, **kw)
-
-        def ipm_iter(self, *args, **kw):
-            keep(("ipm_iter", tuple(args[4].shape), bool(args[15]),
-                  kw.get("M") is not None), args, kw)
-            return kernels.ipm_iter(*args, **kw)
-
-    pdip.kernels = Recorder()
-    try:
-        fn()
-    finally:
-        pdip.kernels = kernels
-    return calls
-
-
-def check_ns_live(exact, label: str) -> dict:
-    """The lanes' Newton-Schulz sweeps take no step on the path's own data
-    (batch 1, 8, the N=50 lanes) or almost none (batch 128): the refresh of
-    their ill-conditioned M diverges in float32, the plain version's as the
-    kernel's, and the sweep refuses the step.  So that the comparison sees
-    a sweep that moves, this runs the same chain at the same shape on the
-    inputs of the exact sweep (``exact``: its recorded arguments): as a
-    Newton-Schulz sweep that forms its own M and takes the exact inverse as
-    its refresh (0 products), which must move the iterate by more than the
-    tolerance; and the refresh's product on that M and inverse, held to the
-    float64 product.  Returns the row's fields."""
-    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
-    args, kw = exact
-    args = list(args)
-    args[15] = True
-    kw = {k: v for k, v in kw.items() if k != "M"} | {"ns_steps": 0}
-    c = kc.compare_ipm_iter(args, kw, f"{label} live")
-    kc.check(c["moved"] > 1.0,
-             f"ipm_iter {label}: on the exact sweep's inputs the plain "
-             f"version moves the iterate by {c['moved']:.2f} of the tolerance")
-    err, plain_err = kc.check_ns_product(exact[1]["M"], exact[0][14], label)
-    return dict(live_max_rel_err=c["max_rel_err"], live_tol=c["tol"],
-                live_moved_over_tol=c["moved"], ns_product_err=err,
-                ns_product_plain_err=plain_err)
-
-
 def check_kernels_at(cfg, batch: int, label: str) -> list[dict]:
     """One RTI, then one gait update, at this configuration and batch, with
     the kernel calls recorded; each recorded call is held to the kernel's
-    plain version (``ops/kernel_checks.py``'s tolerances; an exact
-    ``ipm_iter`` sweep must move its iterate by more than its tolerance, so
-    that the comparison could see a kernel that wrote nothing, and a
-    Newton-Schulz sweep that does not is also checked by
-    :func:`check_ns_live`) and timed, with its
-    bound and, for ``gtwg``, the ``torch.baddbmm`` call that computes the
-    same product.  Returns one row per kernel and shape."""
-    import torch
+    plain version and timed (``kernel_checks.check_recorded_calls``).
+    Returns one row per kernel and shape."""
     from bilevel_gait_gen_tpu_torch.mpc import bilevel, solver
     from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
-    from bilevel_gait_gen_tpu_torch.ops import kernels
     from bilevel_gait_gen_tpu_torch.problem import make_problem
     pr = make_problem(cfg, batch, device="cuda")
     st, _ = solver.solve_step(cfg, pr.params, *pr.loop_args())
-    calls = record_kernel_calls(lambda: bilevel.gait_opt_update(
+    calls = kc.record_kernel_calls(lambda: bilevel.gait_opt_update(
         cfg, pr.params, st, *pr.loop_args()[1:]))
-    rows = []
-    w_hi = 0.01 / torch.finfo(torch.float32).eps
-    for key, (args, kw) in calls.items():
-        if key[0] == "gtwg":
-            H, G = args
-            lam, s, reg = kw["lam"], kw["s"], kw["reg"]
-            err, abs_err = kc.check_gtwg(H, G, lam, s, w_hi, reg,
-                                         f"{label} {list(G.shape)}")
-            t = kc.time_gemms(H, G, lam, s, w_hi, reg)
-            W = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
-            plain = kc.cuda_ms(lambda: kernels.gtwg_reference(H, G, W, reg))
-            B, m, n = G.shape
-            bnd, by = kc.bound_ms(*kc.gtwg_work(B, m, n))
-            rows.append(dict(kernel="gtwg", config=label,
-                             shape=[B, n, m], max_rel_err=err,
-                             max_abs_err=abs_err, tol=kc.TOL_GTWG,
-                             ms=t["gtwg"], plain_ms=plain, bound_ms=bnd,
-                             bound_by=by, library_ms=t["gtwg_library"],
-                             ns_gemm_ms=t["ns_gemm"],
-                             ns_gemm_library_ms=t["ns_gemm_library"]))
-            continue
-        _, shape, do_ns, handed_m = key
-        c = kc.compare_ipm_iter(args, kw, f"{label} {list(shape)}")
-        live = {}
-        if c["moved"] <= 1.0:
-            kc.check(do_ns, f"ipm_iter {label} {list(shape)}: the exact "
-                     f"sweep moves the iterate by {c['moved']:.2f} of the "
-                     f"tolerance, too little for the comparison to count")
-            live = check_ns_live(calls["ipm_iter", shape, False, True],
-                                 f"{label} {list(shape)}")
-        ms = kc.cuda_ms(lambda: kernels.ipm_iter(*kc.fresh_state(args),
-                                                 **kw))
-        plain = kc.cuda_ms(lambda: kernels.ipm_iter_reference(
-            *kc.fresh_state(args), **kw))
-        B, m, n = shape
-        p = args[2].shape[-2]
-        flops, iter_flops, nbytes = kc.sweep_work(
-            B, m, n, p, kw["ns_steps"] if do_ns else 0)
-        bnd, by = kc.bound_ms(flops if not handed_m else iter_flops, nbytes)
-        rows.append(dict(kernel="ipm_iter", config=label, shape=[B, n, m, p],
-                         refresh="newton-schulz" if do_ns else "exact",
-                         handed_m=handed_m, max_rel_err=c["max_rel_err"],
-                         max_abs_err=c["max_abs_err"], tol=c["tol"],
-                         moved_over_tol=c["moved"], stepped=c["stepped"],
-                         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                         library_ms=None, **live))
-    for r in rows:
-        print(f"[kernel] {r['kernel']} {label} {r['shape']}"
-              + (f" {r['refresh']} refresh" if "refresh" in r else "")
-              + (", handed M" if r.get("handed_m") else "")
-              + (f" ({r['stepped']} of {r['shape'][0]} problems stepped, "
-                 f"the plain version moved {r['moved_over_tol']:.2f}x tol"
-                 + (f"; live: the sweep on the exact sweep's inputs rel "
-                    f"{r['live_max_rel_err']:.2e} (<= {r['live_tol']:.2e}, "
-                    f"moved {r['live_moved_over_tol']:.1f}x tol), the NS "
-                    f"product {r['ns_product_err']:.2e} of |M||X| "
-                    f"(baddbmm {r['ns_product_plain_err']:.2e})"
-                    if "live_tol" in r else "") + ")"
-                 if "stepped" in r else "")
-              + f": max rel err {r['max_rel_err']:.2e} (<= {r['tol']:.2e}); "
-              f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
-              + (f", baddbmm {r['library_ms']:.3f} ms"
-                 if r["library_ms"] is not None else ""), flush=True)
-    return rows
+    return kc.check_recorded_calls(calls, label)
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +188,7 @@ def cadence_n20(bench: Bench, cfg, batch: int, freq: int, cycles: int,
     fraction, accept rate and mean step are means over the timed graphed
     cycles."""
     from bilevel_gait_gen_tpu_torch.mpc import cadence
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
     from bilevel_gait_gen_tpu_torch.problem import make_problem
     pr = make_problem(cfg, batch, device=bench.dev)
 
@@ -349,8 +217,7 @@ def cadence_n20(bench: Bench, cfg, batch: int, freq: int, cycles: int,
     cyc_ms = bench.times_ms(g, cycles, after=read)
     launches = getattr(g, "captured_launches", None)
     if profile:
-        out["profile_graphed_cycle"] = profile_call(bench, g,
-                                                    "graphed cycle")
+        out["profile_graphed_cycle"] = kc.profile_call(g, "graphed cycle")
     gb = bench.loop(blk, g.args[0], *rest, carry={0: state_of})
     blk_ms = bench.times_ms(gb, cycles)
     st = gb.args[0]
@@ -363,8 +230,8 @@ def cadence_n20(bench: Bench, cfg, batch: int, freq: int, cycles: int,
                       graphed=False)
     eager_blk = bench.times_ms(loop, cycles)
     if profile:
-        out["profile_eager_cycle"] = profile_call(
-            bench, Eager(cyc, loop.args[0], *rest), "eager cycle")
+        out["profile_eager_cycle"] = kc.profile_call(
+            Eager(cyc, loop.args[0], *rest), "eager cycle")
 
     # all the work over the summed time of the timed calls
     c, b = np.mean(cyc_ms), np.mean(blk_ms)
@@ -556,46 +423,6 @@ def n50(bench: Bench, cfg50, freq: int, cycles: int) -> dict:
         "n50_cadence_ms": spread(cyc_ms),
         "n50_cycle_captured_launches": launches,
     }
-
-
-def profile_call(bench: Bench, call, label: str) -> dict:
-    """One call under ``torch.profiler``: the device's busy time (the union
-    of its kernels' and copies' intervals) against the call's wall time,
-    and the kernels by total time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    call()
-    bench.sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        call()
-        bench.sync()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, end = 0.0, -np.inf
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    by_name: dict[str, list] = {}
-    for e in dev:
-        rec = by_name.setdefault(e.name, [0.0, 0])
-        rec[0] += (e.time_range.end - e.time_range.start) / 1e3
-        rec[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    window = (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
-    res = {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-           "device_window_ms": window, "device_ops": len(dev),
-           "busy_share_of_wall": busy / 1e3 / wall,
-           "top": [[n, ms, k] for n, (ms, k) in top]}
-    print(f"[profile] {label}: wall {wall:.1f} ms, device busy "
-          f"{busy / 1e3:.1f} ms ({100 * busy / 1e3 / wall:.1f}% of wall), "
-          f"{len(dev)} device operations; by time: "
-          + "; ".join(f"{n[:60]} {ms:.2f} ms x{k}" for n, ms, k in res["top"]),
-          flush=True)
-    return res
 
 
 def card_record() -> tuple[str, float | None]:

@@ -10,8 +10,9 @@ scenario dimension (for instance by stacking JAX objects first).
 ``to_numpy`` is the inverse used by the tests, so both sides can compute on
 identical data.  ``device=None`` means the GPU
 (:func:`bilevel_gait_gen_tpu_torch.default_device`); the CPU tests pass
-``device="cpu"``.  :func:`from_config` copies a JAX-package ``MPCConfig``
-into the port's own class.
+``device="cpu"``.  :func:`from_config`, :func:`from_wbqp_config` and
+:func:`from_sim_config` copy a JAX-package ``MPCConfig``, ``WBQPConfig`` and
+``SimConfig`` into the port's own classes.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from bilevel_gait_gen_tpu_torch import resolve_device
+from bilevel_gait_gen_tpu_torch.control.wbqp import WBQPConfig
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.models.srb import SRBParams
 from bilevel_gait_gen_tpu_torch.mpc.bilevel import OuterCurvature
@@ -29,6 +31,7 @@ from bilevel_gait_gen_tpu_torch.mpc.qp import CondensedQP
 from bilevel_gait_gen_tpu_torch.mpc.solver import SolverState
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory
 from bilevel_gait_gen_tpu_torch.ops.pdip import QPSolution
+from bilevel_gait_gen_tpu_torch.sim.engine import SimConfig
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 
 
@@ -50,12 +53,23 @@ def from_config(cfg) -> MPCConfig:
     return MPCConfig(**dataclasses.asdict(cfg))
 
 
+def from_wbqp_config(c) -> WBQPConfig:
+    """The port's ``WBQPConfig`` with every field of a JAX-package one."""
+    return WBQPConfig(**dataclasses.asdict(c))
+
+
+def from_sim_config(c) -> SimConfig:
+    """The port's ``SimConfig`` with every field of a JAX-package one."""
+    return SimConfig(**dataclasses.asdict(c))
+
+
 def from_robot_model(m, *, device=None) -> RobotModel:
     """The model's arrays stay float32, as the JAX make_a1 keeps them."""
     static = ("parent", "ee_link", "hip_link", "ee_names", "joint_names")
     kw = {name: tuple(getattr(m, name)) for name in static}
+    # total_mass is left out: the model computes it when it is made
     kw.update(_fields(m, RobotModel, device=device, dtype=torch.float32,
-                      skip=static))
+                      skip=static + ("total_mass",)))
     return RobotModel(**kw)
 
 

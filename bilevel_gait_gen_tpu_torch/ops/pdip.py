@@ -99,6 +99,18 @@ def _chol_inverse(M: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], X, nan)
 
 
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [..., n] with A x = b for symmetric positive definite A
+    [..., n, n] (batch dimensions broadcast), through ``cholesky_ex`` and two
+    triangular solves: no factorization check reads a status back, so the
+    solve runs inside a CUDA graph, where ``torch.linalg.solve`` checks its
+    status on the host.  It stands where the JAX package calls
+    ``jnp.linalg.solve`` on such a matrix."""
+    L = torch.linalg.cholesky_ex(A).L
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+
+
 def _schur_inverse(M: torch.Tensor, base: int = 32) -> torch.Tensor:
     """SPD inverse by recursive 2x2 Schur-complement blocks: matrix products
     above the ``base``-sized leaves, which use :func:`_chol_inverse`.  On

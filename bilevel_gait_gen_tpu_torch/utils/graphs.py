@@ -7,11 +7,12 @@ gait update) as one jitted dispatch.  Run eagerly, the same cycle is some
 :class:`Graphed` captures such a function once as one
 ``torch.cuda.CUDAGraph`` and replays it: one launch from the host a call.
 
-Arguments and results are pytrees: tensors inside tuples, lists, dicts and
-dataclasses (``SolverState``, ``GaitOptResult``); anything else is a
-constant of the capture.  The graph reads its inputs from static copies of
-the example arguments and writes its results to the tensors the captured
-call returned, so each replay overwrites the last one's results.
+Arguments and results are pytrees: tensors inside tuples (named ones
+included), lists, dicts and dataclasses (``SolverState``,
+``GaitOptResult``); anything else is a constant of the capture.  The
+graph reads its inputs from static copies of the example arguments and
+writes its results to the tensors the captured call returned, so each
+replay overwrites the last one's results.
 """
 from __future__ import annotations
 
@@ -34,8 +35,11 @@ def tree_map(fn: Callable, tree, *rest):
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)})
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
-                          for i, t in enumerate(tree))
+        parts = [tree_map(fn, t, *(r[i] for r in rest))
+                 for i, t in enumerate(tree)]
+        # a NamedTuple takes its fields one by one
+        return type(tree)(*parts) if hasattr(tree, "_fields") else \
+            type(tree)(parts)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
@@ -43,9 +47,19 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
-    leaves = []
-    tree_map(leaves.append, tree)
-    return leaves
+    """The tensors of ``tree`` in the order :func:`tree_map` visits them
+    (nothing is rebuilt on the way)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        parts = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, (tuple, list)):
+        parts = tree
+    elif isinstance(tree, dict):
+        parts = tree.values()
+    else:
+        return []
+    return [leaf for part in parts for leaf in tree_leaves(part)]
 
 
 def copy_into(dst, src) -> None:

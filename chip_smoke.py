@@ -45,7 +45,18 @@ it on the way:
    are printed beside the Cholesky's and not gated, with what tells where
    the scenarios are lost: the inverse's residual on every matrix of the
    run against the Cholesky's, and the run again with the Cholesky at the
-   solves' start points only, then at their sweeps only.
+   solves' start points only, then at their sweeps only;
+8. the closed loop (``sim/engine.closed_loop``): the flagship loop of
+   tests/test_sim_engine.py (penalty-ground physics, the 1 kHz whole-body
+   torque QP, MPC real-time iterations, the gait update every fifth MPC
+   update, a mistimed trot) at batch 128 for 550 ticks, each kind of MPC
+   period replayed as a CUDA graph; every log entry finite and every base
+   above 0.15 m; each period's replay against its eager run bit for bit,
+   ``gtwg`` and ``ipm_iter`` launched by the gait period (none by the RTI
+   period) and held to their plain versions at its shapes; two scenarios
+   of one period on the card (float32) against the CPU (float64); eager
+   and graphed ms per period and per control tick, ticks/s and the
+   aggregate real-time factor.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -915,6 +926,296 @@ def phase_cold_start_gj(cfg):
     return gj["launches"], gj["forms"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the closed loop
+# ---------------------------------------------------------------------------
+
+LOOP_BATCH = 128
+LOOP_TICKS = 550        # 11 MPC periods; the gait update at ticks 250, 500
+MPC_EVERY = 50
+GAIT_EVERY = 5
+CONTROL_DT = 0.001
+LOOP_PERT = 0.01        # rad, the joints' perturbation per scenario
+# card (float32) against CPU (float64), one RTI period from one plan: held
+# to 10x the CPU float32 run's own distance from float64 on the same inputs
+# (the card sums in other orders, and the loop amplifies rounding: the
+# torques switch between their bounds within 25 ticks), and at least to
+TOL_TAU = 0.01          # N m, the first tick's torques
+TOL_BASE = 1e-4         # m, the period's base positions
+
+
+def loop_configs():
+    """The flagship closed loop of tests/test_sim_engine.py::
+    test_closed_loop_bilevel_trot_3s: (MPCConfig, WBQPConfig, SimConfig)."""
+    from bilevel_gait_gen_tpu_torch.control.wbqp import WBQPConfig
+    from bilevel_gait_gen_tpu_torch.sim.engine import SimConfig
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+    cfg = MPCConfig(ipm_iters=18, force_carrier=True, double_support=0.15,
+                    carrier_ramp=0.15, swing_height=0.05,
+                    ls_alphas=4).validate()
+    return cfg, WBQPConfig(torque_bound=30.0), SimConfig()
+
+
+def loop_start(cfg, sim, batch: int, device, dtype):
+    """The flagship's start, batch first: the settled stand, a trot with
+    every phase bound stretched x1.25 (mistimed, so that the gait update has
+    something to fix), create_initial_run once, then ``batch`` scenarios of
+    that plan whose joints are moved by LOOP_PERT * N(0, 1) from a seeded
+    numpy generator (scripts/batch_sim_demo.py draws with jax.random).
+    Returns (model, params, state, q0 [B, nq], v0 [B, nv], x_des [B, 12])."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.control import mpc_controller
+    from bilevel_gait_gen_tpu_torch.models import a1, rbd, srb
+    from bilevel_gait_gen_tpu_torch.mpc import gait, solver
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    model = a1.make_a1(device=device)
+    stand = torch.tensor(a1.stand_config(), dtype=dtype, device=device)
+    q0 = engine.settled_stand(model, sim, stand)
+    params = srb.make_srb_params(model, q0)
+    x0 = mpc_controller.reconstruct_srb_state(model, params, q0,
+                                              torch.zeros_like(q0[1:]))
+    feet0 = rbd.ee_positions(model, q0)
+    sched = gait.GaitSchedule(bounds=gait.make_trot(
+        cfg, dtype=dtype, device=device).bounds * 1.25)
+    traj = default_trajectory(cfg, sched, x0[None], feet0[None, :, :2])
+    st = solver.make_state(cfg, traj, torch.tensor(
+        [cfg.ee_box_size], dtype=dtype, device=device))
+    x_des = srb.manifold_to_tangent(x0)[None]
+    st, stats = solver.create_initial_run(cfg, params, st, x0[None],
+                                          feet0[None], x_des)
+    check(bool(stats.solved.all()), "the closed loop's initial run solved")
+    dq = LOOP_PERT * np.random.default_rng(0).standard_normal(
+        (batch, model.num_joints))
+    q0s = q0.expand(batch, -1) + torch.cat([
+        torch.zeros(batch, 7, dtype=dtype, device=device),
+        torch.tensor(dq, dtype=dtype, device=device)], dim=-1)
+    states = tree_map(lambda a: a.expand(batch, *a.shape[1:]).clone(), st)
+    return (model, params, states, q0s,
+            torch.zeros(batch, model.nv, dtype=dtype, device=device),
+            x_des.expand(batch, -1).clone())
+
+
+def timed_ms(fn, *args):
+    """(fn(*args), milliseconds between two synchronizations)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_bitwise(got, want, what: str) -> int:
+    """Every output of ``got`` equal to ``want`` bit for bit (NaNs
+    included); returns how many outputs were compared."""
+    d = leaf_distances(got, want)
+    check(not any(d), f"{what}: {sum(map(bool, d))} of {len(d)} outputs "
+          f"differ (max {max(d):.3e})")
+    return len(d)
+
+
+def phase_closed_loop(card: str):
+    """Phase 8: the flagship closed loop (penalty-ground physics, the 1 kHz
+    torque QP, MPC real-time iterations, the gait update every fifth MPC
+    update) at batch 128 for LOOP_TICKS ticks, float32 on the card.
+
+    1. ``engine.closed_loop``, the entry point, with the kernels' counts set
+       to 0 before and read after: it captures one CUDA graph of an RTI
+       period and one of a gait period and replays them; ``gtwg`` and
+       ``ipm_iter`` must have launched (at the gait graph's warm-up and
+       capture); every log entry finite (the cost where an MPC update ran),
+       base z above 0.15 m in every scenario; the solved share of the MPC
+       updates and the change of the phase lengths printed, not gated.
+    2. The two periods as graphs against their eager runs, bit for bit: the
+       RTI period from tick 0 (no kernel launched at its capture), replayed
+       on to tick 250, then the gait period from there (both kernels
+       launched at its capture); the kernels held to their plain versions on
+       the calls of that gait update (``kernel_checks``); the whole loop
+       replayed through the two graphs and timed; one control tick graphed
+       and timed, and its device busy share under ``torch.profiler``,
+       graphed and eager.
+    3. Card against CPU: two scenarios of one RTI period from one plan, on
+       the card in float32 and on the CPU in float64 (and float32).
+    Returns (the launches of step 1, the kernel rows of step 2)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.models import rbd
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed, tree_map
+    t_phase = time.perf_counter()
+    cfg, wb, sim = loop_configs()
+    B = LOOP_BATCH
+    (model, params, st, q0, v0, x_des), start_ms = timed_ms(
+        loop_start, cfg, sim, B, DEVICE, torch.float32)
+    bounds0 = st.traj.sched.bounds.clone()
+    n_periods = LOOP_TICKS // MPC_EVERY
+
+    # 1. the entry point
+    kernels.reset_launch_counts()
+    (st_out, log), loop_ms = timed_ms(lambda: engine.closed_loop(
+        model, params, cfg, wb, sim, st, q0, v0, x_des, n_ticks=LOOP_TICKS,
+        control_dt=CONTROL_DT, mpc_every=MPC_EVERY, gait_opt_every=GAIT_EVERY,
+        contact_sync=True))
+    launches = kernels.launch_counts()
+    for name in ("gtwg", "ipm_iter"):
+        check(launches[name] > 0, f"{name} launched in the closed loop")
+    check(tuple(log.q.shape) == (LOOP_TICKS, B, model.nq), "log shape")
+    for name in ("q", "v", "srb_state", "tau"):
+        check(bool(torch.isfinite(getattr(log, name)).all()),
+              f"closed loop: every {name} finite")
+    mpc_ticks = torch.arange(0, LOOP_TICKS, MPC_EVERY, device=log.q.device)
+    check(bool(torch.isfinite(log.cost[mpc_ticks]).all()),
+          "closed loop: the cost of every MPC update finite")
+    z_min = log.q[..., 2].amin(dim=0)
+    check(bool((z_min > 0.15).all()), f"base z above 0.15 m in every "
+          f"scenario (lowest {float(z_min.min()):.4f} m)")
+    solved = float(log.solved[mpc_ticks].float().mean())
+    dlen = float(torch.amax(torch.abs(torch.diff(st_out.traj.sched.bounds)
+                                      - torch.diff(bounds0))))
+
+    # 2. each period graphed against its eager run
+    ls0 = engine.initial_state(model, cfg, sim, st, q0, v0)
+
+    def period_fn(gait):
+        return lambda ls: engine.period(
+            model, params, cfg, wb, sim, x_des, ls, control_dt=CONTROL_DT,
+            ticks=MPC_EVERY, gait=gait, contact_sync=True)
+
+    def carry(out):
+        return out[0]
+
+    eager_rti, eager_rti_ms = timed_ms(period_fn(False), ls0)
+    g_rti, capture_rti_ms = timed_ms(lambda: Graphed(period_fn(False), ls0,
+                                                     carry={0: carry}))
+    n_out = check_bitwise(g_rti(ls0), eager_rti, "graphed RTI period")
+    check(g_rti.captured_launches["gtwg"] == 0
+          and g_rti.captured_launches["ipm_iter"] == 0,
+          f"no kernel in the RTI period: {g_rti.captured_launches}")
+    rti_ms = [timed_ms(g_rti)[1] for _ in range(GAIT_EVERY - 1)]
+    ls_g = tree_map(torch.clone, g_rti.args[0])
+    check(int(ls_g.tick) == GAIT_EVERY * MPC_EVERY, "replayed to the gait "
+          "update's tick")
+    feet = rbd.ee_positions(model, ls_g.q)
+    t_g = (ls_g.tick.to(torch.float32) * CONTROL_DT).expand(B)
+    calls = kc.record_kernel_calls(lambda: engine.mpc_update(
+        model, params, cfg, ls_g, t_g, x_des, feet,
+        engine.latch_contact(sim, feet, ls_g.mc), gait=True,
+        contact_sync=True))
+    krows = kc.check_recorded_calls(calls, "closed loop")
+    eager_gait, eager_gait_ms = timed_ms(period_fn(True), ls_g)
+    g_gait, capture_gait_ms = timed_ms(lambda: Graphed(
+        period_fn(True), ls_g, carry={0: carry}))
+    out, gait_ms = timed_ms(g_gait, ls_g)
+    n_out += check_bitwise(out, eager_gait, "graphed gait period")
+    for name in ("gtwg", "ipm_iter"):
+        check(g_gait.captured_launches[name] > 0,
+              f"{name} launched at the gait period's capture")
+    # the whole loop again through the two graphs, timed
+    cur, t0 = ls0, time.perf_counter()
+    for i in range(n_periods):
+        g = g_gait if engine.is_gait_period(i, GAIT_EVERY) else g_rti
+        g(cur)
+        cur = g.args[0]
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    check(torch.equal(cur.q, log.q[-1]), "the replayed loop ends where "
+          "closed_loop ended, bit for bit")
+    captured = {"rti": dict(g_rti.captured_launches),
+                "gait": dict(g_gait.captured_launches)}
+    # one control tick (after the gait update), graphed
+    st_g = tree_map(torch.clone, g_gait.out[0].st)
+    t1 = t_g + CONTROL_DT
+
+    def tick(q, v, mc):
+        return engine.control_tick(model, params, cfg, wb, sim, st_g, q, v,
+                                   t1, t_g, mc, control_dt=CONTROL_DT)
+
+    tick_args = (ls_g.q, ls_g.v, ls_g.mc)
+    eager_tick_ms = [timed_ms(tick, *tick_args)[1] for _ in range(3)]
+    g_tick = Graphed(tick, *tick_args)
+    tick_ms = [timed_ms(g_tick)[1] for _ in range(10)]
+    busy = {name: kc.profile_call(call, f"{name} control tick")
+            for name, call in (("graphed", g_tick),
+                               ("eager", lambda: tick(*tick_args)))}
+    for g in (g_rti, g_gait, g_tick):
+        g.close()
+
+    # 3. card against CPU
+    cmp = closed_loop_card_vs_cpu(cfg, wb, sim)
+    sim_s = LOOP_TICKS * CONTROL_DT
+    print(f"[closed-loop] {card}; batch {B}, {LOOP_TICKS} ticks "
+          f"({n_periods} MPC periods of {MPC_EVERY}, the gait update in "
+          f"periods {[i for i in range(n_periods) if engine.is_gait_period(i, GAIT_EVERY)]}): "
+          f"start (settle, create_initial_run) {start_ms:.0f} ms; "
+          f"closed_loop {loop_ms:.0f} ms with its two captures, launches "
+          f"{launches}; replayed through the graphs {replay_s * 1e3:.0f} ms "
+          f"= {LOOP_TICKS / replay_s:.1f} ticks/s, real-time factor "
+          f"{B * sim_s / replay_s:.2f} (B x simulated s / wall s); solved "
+          f"share of the MPC updates {solved:.4f}; phase lengths moved by "
+          f"dlen {dlen:.3e} s; lowest base z {float(z_min.min()):.4f} m",
+          flush=True)
+    print(f"[closed-loop] RTI period: eager {eager_rti_ms:.0f} ms, capture "
+          f"(2 warm-up calls included) {capture_rti_ms:.0f} ms, graphed "
+          f"{', '.join(f'{t:.1f}' for t in rti_ms)} ms; gait period: eager "
+          f"{eager_gait_ms:.0f} ms, capture {capture_gait_ms:.0f} ms, graphed "
+          f"{gait_ms:.1f} ms; replay vs eager bit for bit on all {n_out} "
+          f"outputs; captured launches {captured}; control tick: eager "
+          f"{', '.join(f'{t:.2f}' for t in eager_tick_ms)} ms, graphed "
+          f"median {float(np.median(tick_ms)):.3f} ms; device busy "
+          + ", ".join(f"{k} {100 * r['busy_share_of_wall']:.1f}% of "
+                      f"{r['wall_ms']:.2f} ms ({r['device_ops']} device "
+                      f"operations)" for k, r in busy.items()), flush=True)
+    print(f"[closed-loop] card vs CPU, 2 scenarios, one RTI period from one "
+          f"plan: {cmp}", flush=True)
+    print(f"[closed-loop] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, krows
+
+
+def closed_loop_card_vs_cpu(cfg, wb, sim) -> str:
+    """Two scenarios of the flagship start, planned once on the CPU in
+    float64; one RTI period of the closed loop from there on the card in
+    float32, on the CPU in float64 and in float32.  The first tick's
+    torques and the period's base positions of the card are held to
+    float64 within 10x the CPU float32 run's own distance (at least
+    TOL_TAU, TOL_BASE)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.models import a1
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    _, params, st, q0, v0, x_des = loop_start(cfg, sim, 2, "cpu",
+                                              torch.float64)
+    runs = {}
+    for key, dev, dtype in (("card", DEVICE, torch.float32),
+                            ("cpu32", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        def conv(a):
+            return (a.to(device=dev, dtype=dtype) if a.is_floating_point()
+                    else a.to(dev))
+        model = a1.make_a1(device=dev)
+        ls = engine.initial_state(model, cfg, sim, tree_map(conv, st),
+                                  conv(q0), conv(v0))
+        _, log = engine.period(model, tree_map(conv, params), cfg, wb, sim,
+                               conv(x_des), ls, control_dt=CONTROL_DT,
+                               ticks=MPC_EVERY, gait=False, contact_sync=True)
+        runs[key] = (log.tau[0].double().cpu(), log.q[..., :3].double().cpu())
+    parts = []
+    for i, (name, floor) in enumerate((("first tick's torques", TOL_TAU),
+                                       ("base positions", TOL_BASE))):
+        ref = runs["cpu64"][i]
+        d_card = float(torch.amax(torch.abs(runs["card"][i] - ref)))
+        d32 = float(torch.amax(torch.abs(runs["cpu32"][i] - ref)))
+        tol = max(10.0 * d32, floor)
+        check(d_card <= tol, f"card vs CPU, {name}: {d_card:.3e} > "
+              f"{tol:.3e}")
+        parts.append(f"{name} max|card - cpu64| {d_card:.3e} (cpu32 "
+                     f"{d32:.3e}; limit {tol:.3e})")
+    return "; ".join(parts)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -923,7 +1224,7 @@ def main() -> int:
         raise RuntimeError("no CUDA device: the port's kernels need the card")
     check((REPO / "bilevel_gait_gen_tpu_torch").is_dir(),
           "run from a checkout of the repository")
-    phase_device()
+    card = phase_device()
     phase_build()
     cfg = bench_config()
     rows = phase_kernels(cfg)
@@ -932,6 +1233,7 @@ def main() -> int:
     phase_card_vs_cpu(cfg)
     phase_rti_kernel(cfg)
     gj_launches, gj_forms = phase_cold_start_gj(cfg)
+    loop_launches, loop_rows = phase_closed_loop(card)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7); both
     # paths' counts are kept beside them
@@ -939,7 +1241,10 @@ def main() -> int:
         name = row["name"]
         row["launches"] = launches.get(name, gj_launches[name])
         row["launches_by_path"] = {"chol_cadence": launches.get(name, 0),
-                                   "gj_cold_start": gj_launches[name]}
+                                   "gj_cold_start": gj_launches[name],
+                                   "closed_loop": loop_launches[name]}
+        row["closed_loop_checks"] = [r for r in loop_rows
+                                     if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -135,8 +135,8 @@ def _refuse(what):
 
 @pytest.fixture
 def no_host_data(monkeypatch):
-    """Every way the port's code could make a tensor from host data, or
-    read a tensor back to the host, raises."""
+    """Every way the port's code could make a tensor from host data (a
+    list index among them), or read a tensor back to the host, raises."""
     as_tensor = torch.as_tensor
 
     def as_tensor_of_tensor(data, *args, **kw):
@@ -158,7 +158,19 @@ def no_host_data(monkeypatch):
                                  "on the per-call path")
         return setitem(self, index, value)
 
+    getitem = torch.Tensor.__getitem__
+
+    def getitem_of_host_list(self, index):
+        # a read through a Python list of indices builds the index tensor on
+        # the host and copies it over on the card
+        parts = index if isinstance(index, tuple) else (index,)
+        if any(isinstance(i, list) for i in parts):
+            raise AssertionError("a read through a list index on the "
+                                 "per-call path")
+        return getitem(self, index)
+
     monkeypatch.setattr(torch.Tensor, "__setitem__", setitem_of_host_number)
+    monkeypatch.setattr(torch.Tensor, "__getitem__", getitem_of_host_list)
     monkeypatch.setattr(torch, "tensor", _refuse("torch.tensor"))
     monkeypatch.setattr(torch, "as_tensor", as_tensor_of_tensor)
     monkeypatch.setattr(torch, "from_numpy", _refuse("torch.from_numpy"))
@@ -191,6 +203,11 @@ def test_the_guard_catches_a_host_copy(warm, no_host_data):
     with pytest.raises(AssertionError, match="tensor indices"):
         t[0] = 1.0
     t[1:] = 1.0
+    with pytest.raises(AssertionError, match="list index"):
+        t[[0, 2]]
+    with pytest.raises(AssertionError, match="list index"):
+        torch.zeros(2, 3)[..., [0, 2]]
+    t[torch.arange(2)]
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,10 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.mpc.cadence",
     "bilevel_gait_gen_tpu_torch.utils.graphs",
     "bilevel_gait_gen_tpu_torch.ops.kernel_checks",
+    "bilevel_gait_gen_tpu_torch.control.ik",
+    "bilevel_gait_gen_tpu_torch.control.wbqp",
+    "bilevel_gait_gen_tpu_torch.control.mpc_controller",
+    "bilevel_gait_gen_tpu_torch.sim.engine",
     "chip_smoke",
     "bench_torch",
 ])
@@ -276,3 +280,54 @@ def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             port.default_device()
     assert port.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["WBQPConfig", "SimConfig"])
+def test_wbqp_and_sim_config_copies_match_field_by_field(name):
+    """The port's WBQPConfig and SimConfig have the JAX package's fields,
+    in its order, with its defaults; convert copies every field, each moved
+    off its default."""
+    from bilevel_gait_gen_tpu.control import wbqp as jwbqp
+    from bilevel_gait_gen_tpu.sim import engine as jengine
+    from bilevel_gait_gen_tpu_torch.control import wbqp
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    jcls, pcls, conv = {
+        "WBQPConfig": (jwbqp.WBQPConfig, wbqp.WBQPConfig,
+                       convert.from_wbqp_config),
+        "SimConfig": (jengine.SimConfig, engine.SimConfig,
+                      convert.from_sim_config)}[name]
+    jf, pf = dataclasses.fields(jcls), dataclasses.fields(pcls)
+    assert [(f.name, f.default) for f in pf] == \
+        [(f.name, f.default) for f in jf]
+    moved = {f.name: (f.default + 3 if isinstance(f.default, int)
+                      else f.default * 1.5 + 0.25) for f in jf}
+    got = conv(jcls(**moved))
+    assert type(got) is pcls
+    assert dataclasses.asdict(got) == moved
+    assert conv(jcls()) == pcls()
+
+
+def test_total_mass_is_built_once_as_before_the_repair(monkeypatch):
+    """RobotModel.total_mass is the float32 link-order sum the property
+    computed on every read before it was cached (the same bits), a tensor
+    on the model's device, made by make_a1 and by convert; reading it
+    copies nothing (Tensor.tolist is refused meanwhile)."""
+    from bilevel_gait_gen_tpu_torch.models import a1
+    jm = ja1.make_a1()
+    acc = np.float32(0.0)
+    for v in np.asarray(jm.mass).tolist():
+        acc = np.float32(acc + np.float32(v))
+    for m in (a1.make_a1(device="cpu"),
+              convert.from_robot_model(jm, device="cpu")):
+        assert m.total_mass.dtype == torch.float32
+        assert m.total_mass.device == m.mass.device
+        assert m.total_mass.numpy().view(np.int32) == np.asarray(acc).view(
+            np.int32)
+        assert np.asarray(jm.total_mass).view(np.int32) == \
+            np.asarray(acc).view(np.int32)
+    def refused(self):
+        raise AssertionError("Tensor.tolist")
+
+    monkeypatch.setattr(torch.Tensor, "tolist", refused)
+    assert m.total_mass is m.total_mass
+    assert float(m.total_mass * 9.81) > 134.0
