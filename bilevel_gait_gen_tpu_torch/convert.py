@@ -26,6 +26,7 @@ from bilevel_gait_gen_tpu_torch.control.wbqp import WBQPConfig
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.models.srb import SRBParams
 from bilevel_gait_gen_tpu_torch.mpc.bilevel import OuterCurvature
+from bilevel_gait_gen_tpu_torch.mpc.centroidal import CentroidalState
 from bilevel_gait_gen_tpu_torch.mpc.gait import GaitSchedule
 from bilevel_gait_gen_tpu_torch.mpc.qp import CondensedQP
 from bilevel_gait_gen_tpu_torch.mpc.solver import SolverState
@@ -102,6 +103,22 @@ def from_solver_state(st, *, device=None, dtype=torch.float64) -> SolverState:
                                             dtype=dtype),
                        ee_box=tensor(st.ee_box, device=device, dtype=dtype),
                        qp_warm=warm)
+
+
+def from_centroidal_state(st, *, device=None,
+                          dtype=torch.float64) -> CentroidalState:
+    """A JAX-package ``CentroidalState``; ``qp_warm`` and ``vj`` stay None
+    where they are."""
+    def opt(a):
+        return None if a is None else tensor(a, device=device, dtype=dtype)
+
+    warm = (None if st.qp_warm is None else
+            from_qp_solution(st.qp_warm, device=device, dtype=dtype))
+    return CentroidalState(
+        traj=from_trajectory(st.traj, device=device, dtype=dtype),
+        ee_box=tensor(st.ee_box, device=device, dtype=dtype),
+        configs=tensor(st.configs, device=device, dtype=dtype),
+        qp_warm=warm, vj=opt(st.vj))
 
 
 def from_condensed_qp(qp, *, device=None, dtype=torch.float64) -> CondensedQP:

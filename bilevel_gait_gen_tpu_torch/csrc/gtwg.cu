@@ -1,5 +1,6 @@
-// gtwg: batched M = H + G^T diag(W) G + reg I, and the square GEMM of the
-// Newton-Schulz refresh.
+// gtwg: batched M = H + G^T diag(W) G + reg I, and the GEMM of the
+// Newton-Schulz refresh (square) and of the Schur complement of a sweep with
+// more than 32 equality rows (rectangular).
 //
 // Replaces bilevel_gait_gen_tpu/ops/pallas_kernels.py::gtwg (and the M
 // formation and NS products inside ::ipm_iter).  The TPU kernel walks a
@@ -260,30 +261,35 @@ gtwg_kernel(const float* __restrict__ H, const float* __restrict__ G,
   }
 }
 
-// C[b] = alpha * A[b] @ B[b] + diag * I, all [n, n] row-major.  The same
-// tile, register blocking and staging ring as gtwg_kernel, without the
-// symmetry (the product is not symmetric).  A's tile is staged as it lies,
-// [128 rows][16 k]: a thread reads four k of one row with one 16-byte load.
+// C[b] = alpha * A[b] @ Bm[b] + diag * I with A [R, K], Bm [K, Cc] and C
+// [R, Cc], all row-major.  The same tile, register blocking and staging ring
+// as gtwg_kernel, without the symmetry (the product is not symmetric).  It
+// serves the Newton-Schulz refresh (square, R = Cc = K = n) and the Schur
+// complement of a sweep with more than 32 equality rows: A Mi [p, n] and
+// (A Mi) A^T [p, p], the wrapper handing A^T as Bm.  A's tile is staged as
+// it lies, [128 rows][16 k]: a thread reads four k of one row with one
+// 16-byte load.
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-            float* __restrict__ C, int n, float alpha, float diag, int vec) {
+            float* __restrict__ C, int R, int Cc, int K, float alpha,
+            float diag, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z;
   const int i0 = blockIdx.y * kTile;
   const int j0 = blockIdx.x * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t off = (size_t)b * n * n;
-  const float* Ab = A + off;
-  const float* Bb = Bm + off;
-  const int nslab = (n + kSlab - 1) / kSlab;
+  const float* Ab = A + (size_t)b * R * K;
+  const float* Bb = Bm + (size_t)b * K * Cc;
+  float* Cb = C + (size_t)b * R * Cc;
+  const int nslab = (K + kSlab - 1) / kSlab;
 
   auto load_slab = [&](int slab) {
     const int stage = slab % kStages, k0 = slab * kSlab;
     float* a_s = smem + stage * kStageFloats;   // a_s[ii][kk]
-    stage_block(a_s, Ab + (size_t)i0 * n + k0, n, kTile, kSlab, n - i0,
-                n - k0, vec);
-    stage_block(a_s + kStripFloats, Bb + (size_t)k0 * n + j0, n, kSlab,
-                kTile, n - k0, n - j0, vec);   // b_s[kk][jj]
+    stage_block(a_s, Ab + (size_t)i0 * K + k0, K, kTile, kSlab, R - i0,
+                K - k0, vec);
+    stage_block(a_s + kStripFloats, Bb + (size_t)k0 * Cc + j0, Cc, kSlab,
+                kTile, K - k0, Cc - j0, vec);   // b_s[kk][jj]
   };
 
   float acc[8][8];
@@ -332,7 +338,7 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int i = i0 + tile_index(ty, r);
-    if (i >= n) continue;
+    if (i >= R) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int j = j0 + half * 64 + tx * 4;
@@ -342,13 +348,13 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
         v[c] = alpha * acc[r][half * 4 + c];
         if (i == j + c) v[c] += diag;
       }
-      float* o = C + off + (size_t)i * n + j;
-      if (vec && j < n) {
+      float* o = Cb + (size_t)i * Cc + j;
+      if (vec && j < Cc) {
         st4(o, make_float4(v[0], v[1], v[2], v[3]));
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (j + c < n) o[c] = v[c];
+          if (j + c < Cc) o[c] = v[c];
       }
     }
   }
@@ -383,7 +389,23 @@ BGGT_API int bggt_gemm(const float* A, const float* Bm, float* C, int B,
   const int t = (n + bggt::kTile - 1) / bggt::kTile;
   dim3 grid(t, t, B);
   bggt::gemm_kernel<<<grid, bggt::kGemmThreads, bggt::kGemmSmemBytes,
-                      (cudaStream_t)stream>>>(A, Bm, C, n, alpha, diag, vec);
+                      (cudaStream_t)stream>>>(A, Bm, C, n, n, n, alpha, diag,
+                                              vec);
+  return (int)cudaGetLastError();
+}
+
+// vec != 0: K % 4 == 0, Cc % 4 == 0 and every operand 16-byte aligned
+BGGT_API int bggt_rgemm(const float* A, const float* Bm, float* C, int B,
+                        int R, int Cc, int K, float diag, int vec,
+                        void* stream) {
+  static const cudaError_t smem_rc =
+      bggt::allow_max_dynamic_smem(bggt::gemm_kernel);
+  if (smem_rc != cudaSuccess) return (int)smem_rc;
+  dim3 grid((Cc + bggt::kTile - 1) / bggt::kTile,
+            (R + bggt::kTile - 1) / bggt::kTile, B);
+  bggt::gemm_kernel<<<grid, bggt::kGemmThreads, bggt::kGemmSmemBytes,
+                      (cudaStream_t)stream>>>(A, Bm, C, R, Cc, K, 1.f, diag,
+                                              vec);
   return (int)cudaGetLastError();
 }
 

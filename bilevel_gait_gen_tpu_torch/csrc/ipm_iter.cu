@@ -38,6 +38,15 @@
 //  * the p x p Schur complement is factorized by one warp, and every
 //    reduction has a fixed order (shuffle trees within a warp, partial sums
 //    combined in index order), so a result does not change from run to run.
+// The TPU kernel takes any number p of equality rows.  The block keeps A,
+// A Mi and four p x p matrices in shared memory only up to p = 32 (at
+// p = 256, the centroidal QP's, they would take ~2.2 MB), so for p > 32 the
+// wrapper runs the Schur stage on the stream first (A Mi and (A Mi) A^T by
+// gtwg.cu's gemm_kernel, S^-1 by chol_inverse.cu) and launches
+// ipm_iter_handed_kernel, which reads A and S^-1 from device memory and
+// keeps only the vectors in shared memory (~130 KB at n = 512, m = 1792,
+// p = 256: one block an SM).  The p <= 32 kernel is the same code as
+// before, instantiated without the handed inverse.
 // The math and its order of operations follow _iteration_math line by line
 // (only the order inside a row's dot product is the kernel's own),
 // including where-selects (never a 0/1 multiply) and the absence of a
@@ -55,6 +64,7 @@ constexpr int kSuper = 256;  // columns a lane covers with two 16-byte loads
 
 struct IpmArgs {
   const float *H, *q, *A, *b, *G, *h, *ga, *M, *Mi;
+  const float* Si;  // S^-1 [B, p, p] of the Schur stage, or null (p <= 32)
   float *x, *y, *lam, *s, *bx, *by, *blam, *bs, *bmerit;
   int *done, *it;
   int n, m, p, refine_steps;
@@ -91,6 +101,15 @@ inline size_t smem_floats(int n, int m, int p) {
          scratch_floats(n, p) + 4 * (size_t)p * p + 64;
 }
 
+// The layout when the Schur stage has run before the kernel (p > 32): A and
+// S^-1 stay in device memory, and neither A Mi nor the factorization's
+// matrices take room; the scratch is that of the matrix passes alone.
+inline size_t smem_floats_handed(int n, int m, int p) {
+  const size_t pp = (size_t)(p + 3) / 4 * 4;
+  return (size_t)10 * n + 12 * (size_t)m + 9 * pp +
+         (size_t)kWarps * kSuper + 64;
+}
+
 __device__ inline Vecs carve(float* base, int n, int m, int p) {
   Vecs v;
   float* c = base;
@@ -111,6 +130,27 @@ __device__ inline Vecs carve(float* base, int n, int m, int p) {
   v.U = c; c += p * p;
   v.X = c; c += p * p;
   v.Si = c; c += p * p;
+  v.red = c;
+  return v;
+}
+
+__device__ inline Vecs carve_handed(float* base, int n, int m, int p,
+                                    const float* A, const float* Si) {
+  Vecs v;
+  float* c = base;
+  float** nv[] = {&v.x, &v.q, &v.rd, &v.r1, &v.dx, &v.e1, &v.t1, &v.t2,
+                  &v.dxc, &v.cx};
+  for (float** f : nv) { *f = c; c += n; }
+  float** mv[] = {&v.lam, &v.s, &v.h, &v.ga, &v.W, &v.rg, &v.rhs, &v.dsa,
+                  &v.dla, &v.ds, &v.dl, &v.tm};
+  for (float** f : mv) { *f = c; c += m; }
+  float** pv[] = {&v.y, &v.b, &v.rp, &v.r2, &v.dy, &v.e2, &v.tp, &v.cy,
+                  &v.dyc};
+  for (float** f : pv) { *f = c; c += (p + 3) / 4 * 4; }
+  v.A = const_cast<float*>(A);
+  v.Si = const_cast<float*>(Si);
+  v.AMi = v.S = v.U = v.X = nullptr;
+  v.scratch = c; c += (size_t)kWarps * kSuper;
   v.red = c;
   return v;
 }
@@ -460,17 +500,23 @@ __device__ inline float max_step(const float* val, const float* dv, int m,
   return nan_min(block_min(r, red), 1.f);
 }
 
-__global__ void __launch_bounds__(kThreads, 2) ipm_iter_kernel(IpmArgs a) {
-  extern __shared__ float smem[];
+// The sweep of one problem.  kHanded: the Schur stage (gtwg.cu's
+// gemm_kernel for A Mi and (A Mi) A^T, chol_inverse.cu for S^-1) has run
+// on the stream before, and A and S^-1 are read from device memory (p > 32);
+// else A lives in shared memory and the block forms and inverts S itself.
+template <bool kHanded>
+__device__ __forceinline__ void ipm_iter_body(const IpmArgs& a, float* smem) {
   const int n = a.n, m = a.m, p = a.p;
   const int pb = blockIdx.x;
-  Vecs v = carve(smem, n, m, p);
+  const float* Ag = a.A + (size_t)pb * p * n;
+  Vecs v = kHanded ? carve_handed(smem, n, m, p, Ag,
+                                  a.Si + (size_t)pb * p * p)
+                   : carve(smem, n, m, p);
   const size_t on = (size_t)pb * n, om = (size_t)pb * m, op = (size_t)pb * p;
   const float* H = a.H + (size_t)pb * n * n;
   const float* G = a.G + (size_t)pb * m * n;
   const float* M = a.M + (size_t)pb * n * n;
   const float* Mi = a.Mi + (size_t)pb * n * n;
-  const float* Ag = a.A + (size_t)pb * p * n;
   // read before any thread can reach the writes at the end
   const bool done_in = a.done[pb] != 0;
   const float bmerit_in = a.bmerit[pb];
@@ -491,7 +537,8 @@ __global__ void __launch_bounds__(kThreads, 2) ipm_iter_kernel(IpmArgs a) {
     v.y[i] = a.y[op + i];
     v.b[i] = a.b[op + i];
   }
-  for (int e = threadIdx.x; e < p * n; e += kThreads) v.A[e] = Ag[e];
+  if (!kHanded)
+    for (int e = threadIdx.x; e < p * n; e += kThreads) v.A[e] = Ag[e];
   __syncthreads();
 
   float gsum = 0.f;
@@ -499,22 +546,24 @@ __global__ void __launch_bounds__(kThreads, 2) ipm_iter_kernel(IpmArgs a) {
   const float m_act = fmaxf(block_sum(gsum, v.red), 1.f);
 
   // Schur complement S = (A Mi) A^T + reg_s I and its unrolled inverse
-  if (p <= 16) a_times_mi<16>(v.A, Mi, p, n, v.AMi);
-  else a_times_mi<kMaxP>(v.A, Mi, p, n, v.AMi);
-  {
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    for (int pr = warp; pr < p * p; pr += kWarps) {
-      const int i = pr / p, l = pr % p;
-      float acc = 0.f;
-      for (int c = lane; c < n; c += 32)
-        acc = fmaf(v.AMi[i * n + c], v.A[l * n + c], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) v.S[pr] = acc + (i == l ? a.reg_s : 0.f);
+  if (!kHanded) {
+    if (p <= 16) a_times_mi<16>(v.A, Mi, p, n, v.AMi);
+    else a_times_mi<kMaxP>(v.A, Mi, p, n, v.AMi);
+    {
+      const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+      for (int pr = warp; pr < p * p; pr += kWarps) {
+        const int i = pr / p, l = pr % p;
+        float acc = 0.f;
+        for (int c = lane; c < n; c += 32)
+          acc = fmaf(v.AMi[i * n + c], v.A[l * n + c], acc);
+        acc = warp_sum(acc);
+        if (lane == 0) v.S[pr] = acc + (i == l ? a.reg_s : 0.f);
+      }
     }
+    __syncthreads();
+    if (threadIdx.x < 32) chol_inverse_unrolled(v.S, v.U, v.X, v.Si, p);
+    __syncthreads();
   }
-  __syncthreads();
-  if (threadIdx.x < 32) chol_inverse_unrolled(v.S, v.U, v.X, v.Si, p);
-  __syncthreads();
 
   // residuals: r_d = H x + q + A^T y + G^T lam, r_p = A x - b,
   // r_g = G x + s - h
@@ -590,27 +639,55 @@ __global__ void __launch_bounds__(kThreads, 2) ipm_iter_kernel(IpmArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 2) ipm_iter_kernel(IpmArgs a) {
+  extern __shared__ float smem[];
+  ipm_iter_body<false>(a, smem);
+}
+
+// p > 32: one block of a problem on an SM (the vectors alone are ~130 KB at
+// n = 512, m = 1792, p = 256), so the registers are not capped at 64
+__global__ void __launch_bounds__(kThreads, 1)
+ipm_iter_handed_kernel(IpmArgs a) {
+  extern __shared__ float smem[];
+  ipm_iter_body<true>(a, smem);
+}
+
 }  // namespace bggt
 
 BGGT_API int bggt_ipm_iter(const float* H, const float* q, const float* A,
                            const float* b, const float* G, const float* h,
                            const float* g_active, const float* M,
-                           const float* Mi, float* x, float* y, float* lam,
+                           const float* Mi, const float* Si, float* x,
+                           float* y, float* lam,
                            float* s, float* bx, float* by, float* blam,
                            float* bs, float* bmerit, int* done, int* it,
                            int B, int n, int m, int p, float reg_s, float tol,
                            float tol_r, float w_lo, float w_hi, float eps,
                            int refine_steps, void* stream) {
-  if (p > bggt::kMaxP || n % 128 != 0 || m % 128 != 0 ||
-      n > 128 * bggt::kWarps)
+  if (n % 128 != 0 || m % 128 != 0 || n > 128 * bggt::kWarps ||
+      (Si == nullptr && p > bggt::kMaxP))
     return (int)cudaErrorInvalidValue;
+  bggt::IpmArgs a{H, q, A, b, G, h, g_active, M, Mi, Si, x, y, lam, s, bx,
+                  by, blam, bs, bmerit, done, it, n, m, p, refine_steps,
+                  reg_s, tol, tol_r, w_lo, w_hi, eps};
+  if (Si != nullptr) {
+    const size_t bytes = bggt::smem_floats_handed(n, m, p) * sizeof(float);
+    static const cudaError_t smem_rc =
+        bggt::allow_max_dynamic_smem(bggt::ipm_iter_handed_kernel);
+    if (smem_rc != cudaSuccess) return (int)smem_rc;
+    bggt::ipm_iter_handed_kernel<<<B, bggt::kThreads, bytes,
+                                   (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   const size_t bytes = bggt::smem_floats(n, m, p) * sizeof(float);
   static const cudaError_t smem_rc =
       bggt::allow_max_dynamic_smem(bggt::ipm_iter_kernel);
   if (smem_rc != cudaSuccess) return (int)smem_rc;
-  bggt::IpmArgs a{H, q, A, b, G, h, g_active, M, Mi, x, y, lam, s, bx, by,
-                  blam, bs, bmerit, done, it, n, m, p, refine_steps,
-                  reg_s, tol, tol_r, w_lo, w_hi, eps};
   bggt::ipm_iter_kernel<<<B, bggt::kThreads, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+BGGT_API int bggt_ipm_iter_smem_bytes(int n, int m, int p, int handed) {
+  return (int)((handed ? bggt::smem_floats_handed(n, m, p)
+                       : bggt::smem_floats(n, m, p)) * sizeof(float));
 }

@@ -73,12 +73,16 @@ def _block_diag_ee(x: torch.Tensor, e_dim: int, at: int) -> torch.Tensor:
 
 def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
              x0_man: torch.Tensor, t0: torch.Tensor, ee_pos0: torch.Tensor,
-             x_des_tan: torch.Tensor,
-             ee_box_size: torch.Tensor) -> CondensedQP:
+             x_des_tan: torch.Tensor, ee_box_size: torch.Tensor,
+             node_inertia: torch.Tensor | None = None) -> CondensedQP:
     """Build the condensed QP around ``traj`` for a batch of scenarios.
 
     x0_man [B, 13], t0 [B], ee_pos0 [B, E, 3], x_des_tan [B, 12],
-    ee_box_size [B, 2]."""
+    ee_box_size [B, 2].  ``node_inertia`` [B, N(+1), 3, 3], where given,
+    is the per-node composite rotational inertia of the centroidal variant
+    (the first N nodes enter the dynamics linearization); None is the SRB's
+    constant nominal inertia.  Its inverse is ``inv_ex``'s, which reads no
+    status back to the host."""
     N, dt, E = cfg.num_nodes, cfg.dt, cfg.num_ee
     F = cfg.num_force_polys
     S_slots = cfg.num_stance_slots
@@ -122,8 +126,12 @@ def assemble(cfg: MPCConfig, params: SRBParams, traj: Trajectory,
     feet = torch.cat([feet_xy_lin, z_lin[..., None]], dim=-1)
 
     # ---- closed-form continuous linearization, all nodes at once ---------
-    Ir = params.inertia.to(dtype)
-    Ir_inv = params.inertia_inv.to(dtype)
+    if node_inertia is None:
+        Ir = params.inertia.to(dtype)
+        Ir_inv = params.inertia_inv.to(dtype)
+    else:
+        Ir = node_inertia[:, :N].to(dtype)                    # [B, N, 3, 3]
+        Ir_inv = torch.linalg.inv_ex(Ir).inverse
     m_inv = 1.0 / params.mass
     x = xs_tan[:, :N]                                         # [B, N, 12]
     p, h, w = x[..., 0:3], x[..., 3:6], x[..., 9:12]

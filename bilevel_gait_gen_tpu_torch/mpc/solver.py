@@ -7,7 +7,8 @@ window, assemble the condensed QP around the previous trajectory, solve it
 with the interior-point method, run the merit line search and the quality
 gate, update the trajectory and carry the warm start.
 :func:`create_initial_run` is the SQP run to convergence before going real
-time.  The ``admm`` backend is not ported yet.
+time.  ``cfg.qp_backend="admm"`` solves the QP with ``ops/admm.py`` in place
+of the interior-point method, warm-started from the carried solution.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from bilevel_gait_gen_tpu_torch.mpc import gait as gait_mod
 from bilevel_gait_gen_tpu_torch.mpc import qp as qp_mod
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import (Trajectory,
                                                        make_unravel, ravel_u)
-from bilevel_gait_gen_tpu_torch.ops import pdip
+from bilevel_gait_gen_tpu_torch.ops import admm, pdip
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch.utils.consts import const, filled
@@ -116,9 +117,6 @@ def solve_step(cfg: MPCConfig, params: SRBParams, state: SolverState,
     x0_man [B, 13], t0 [B], ee_pos0 [B, E, 3], x_des_tan [B, 12].  Returns
     (state, stats), or (state, stats, SolveExt) with ``return_ext``."""
     set_fp32_precision()
-    if cfg.qp_backend != "pdip":
-        raise NotImplementedError(f"qp_backend={cfg.qp_backend!r} is not "
-                                  "ported yet")
     traj = state.traj
     unravel = make_unravel(cfg)
     dtype, dev = x0_man.dtype, x0_man.device
@@ -139,11 +137,18 @@ def solve_step(cfg: MPCConfig, params: SRBParams, state: SolverState,
     qp = qp_mod.assemble(cfg, params, traj, x0_man, t0, ee_pos0, x_des_tan,
                          state.ee_box)
     exact_every = cfg.ipm_exact_every if state.qp_warm is not None else 1
-    sol = pdip.solve(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h,
-                     iters=cfg.ipm_iters, tol=cfg.ipm_tol,
-                     exact_every=exact_every,
-                     use_pallas=None if cfg.qp_kernel == "pallas" else False,
-                     inverse=cfg.ipm_inverse, warm=state.qp_warm)
+    if cfg.qp_backend == "admm":
+        # OSQP-style backend; the warm start carries the previous solution
+        sol = admm.solve_onesided(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h,
+                                  iters=cfg.admm_iters, tol=cfg.ipm_tol,
+                                  warm=state.qp_warm)
+    else:
+        sol = pdip.solve(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h,
+                         iters=cfg.ipm_iters, tol=cfg.ipm_tol,
+                         exact_every=exact_every,
+                         use_pallas=None if cfg.qp_kernel == "pallas"
+                         else False,
+                         inverse=cfg.ipm_inverse, warm=state.qp_warm)
 
     u_prev = ravel_u(traj.f_nodes, traj.footholds)               # [B, n_u]
     xs_prev = srb.manifold_to_tangent(traj.x_man)                # [B, N+1, 12]

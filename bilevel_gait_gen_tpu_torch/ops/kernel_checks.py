@@ -214,8 +214,9 @@ def compare_ipm_iter(args, kw, label: str) -> dict:
             moved = max(moved, rel_err(r, inp) / tol)
     check(torch.equal(got[4], ref[4]), f"ipm_iter {label}: done")
     check(torch.equal(got[5], ref[5]), f"ipm_iter {label}: it")
-    _, worst, _, worst_tol = max(errs, key=lambda t: t[1] / t[3])
+    _, worst, worst64, worst_tol = max(errs, key=lambda t: t[1] / t[3])
     return dict(errs=errs, max_rel_err=worst, tol=worst_tol,
+                f32_vs_f64=worst64,
                 max_abs_err=worst_abs, moved=moved,
                 stepped=int((got[0] != args[7]).any(-1).sum()))
 
@@ -356,7 +357,8 @@ def check_recorded_calls(calls: dict, label: str) -> list[dict]:
                          refresh="newton-schulz" if do_ns else "exact",
                          handed_m=handed_m, max_rel_err=c["max_rel_err"],
                          max_abs_err=c["max_abs_err"], tol=c["tol"],
-                         moved_over_tol=c["moved"], stepped=c["stepped"],
+                         f32_vs_f64=c["f32_vs_f64"], moved_over_tol=c["moved"],
+                         stepped=c["stepped"],
                          ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                          library_ms=None, **live))
     for r in rows:
@@ -372,7 +374,10 @@ def check_recorded_calls(calls: dict, label: str) -> list[dict]:
                     f"(baddbmm {r['ns_product_plain_err']:.2e})"
                     if "live_tol" in r else "") + ")"
                  if "stepped" in r else "")
-              + f": max rel err {r['max_rel_err']:.2e} (<= {r['tol']:.2e}); "
+              + f": max rel err {r['max_rel_err']:.2e} (<= {r['tol']:.2e}"
+              + (f"; the plain version float32 vs float64 "
+                 f"{r['f32_vs_f64']:.2e}" if "f32_vs_f64" in r else "")
+              + "); "
               f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
               + (f", baddbmm {r['library_ms']:.3f} ms"

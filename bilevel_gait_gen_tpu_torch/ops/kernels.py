@@ -24,7 +24,18 @@ Ports of the three TPU kernels of
   sweep, Mi nine times, M twice, and at 512 problems none of them stays in
   the 50 MB L2): it keeps every vector in shared memory, shares one pass
   over G between the two residual products, keeps two rows of every warp
-  in flight and runs two blocks per SM.
+  in flight and runs two blocks per SM.  The TPU kernel takes any number
+  p of equality rows; the iteration kernel forms and inverts the p x p
+  Schur complement in its shared memory only up to p = 32.  For p > 32
+  (the centroidal QP: p = 256) the wrapper runs the Schur stage on the
+  stream before it, :func:`schur_inverse`: A Mi and (A Mi) A^T by
+  :func:`rgemm` (``csrc/gtwg.cu``, the kernel of the Newton-Schulz
+  product at a rectangular shape), S^-1 by :func:`chol_inverse`
+  (``csrc/chol_inverse.cu``, the unrolled Cholesky of
+  ``pallas_kernels._chol_inverse_unrolled`` on the packed upper triangle
+  in one block's shared memory), and the iteration kernel reads A and S^-1
+  from device memory.  The branch is picked by shape, never by a failed
+  launch.
 * :func:`gj_inverse` (``csrc/gj_inverse.cu``) replaces
   ``pallas_kernels.gj_inverse``: the batched Gauss-Jordan inverse without
   pivoting, blocked (width 32) for n a multiple of the block width.  One
@@ -72,7 +83,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-_SOURCES = ("common.cuh", "gtwg.cu", "ipm_iter.cu", "gj_inverse.cu")
+_SOURCES = ("common.cuh", "gtwg.cu", "ipm_iter.cu", "gj_inverse.cu",
+            "chol_inverse.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,8 +95,12 @@ _SIGNATURES = {
     "bggt_gtwg": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
                   _I),
     "bggt_gemm": ([_P, _P, _P, _I, _I, _F, _F, _I, _P], _I),
-    "bggt_ipm_iter": ([_P] * 20 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+    "bggt_rgemm": ([_P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+    "bggt_ipm_iter": ([_P] * 21 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                    _I, _P], _I),
+    "bggt_ipm_iter_smem_bytes": ([_I, _I, _I, _I], _I),
+    "bggt_chol_inverse": ([_P, _P, _I, _I, _P], _I),
+    "bggt_chol_inverse_smem_bytes": ([_I], _I),
     "bggt_gj_inverse": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "bggt_gj_smem_bytes": ([_I, _I], _I),
     "bggt_gj_block_width": ([], _I),
@@ -150,8 +166,8 @@ def _compile(out_dir: Path, lib_path: Path) -> None:
 
 
 def build() -> tuple[ctypes.CDLL, Path]:
-    """Compile the CUDA sources (once per source hash, the three files side
-    by side) and load them.
+    """Compile the CUDA sources (once per source hash, the files side by
+    side) and load them.
 
     The library goes to ``_build/<hash>/``; the compiler's ``-Xptxas -v``
     report (registers, shared memory, spills) is kept beside it as
@@ -240,6 +256,41 @@ def ns_gemm_launch(lib, stream, A, Bm, C, alpha: float, diag: float) -> None:
     _check(lib, rc, "ns gemm")
 
 
+def rgemm_reference(A: torch.Tensor, Bm: torch.Tensor,
+                    diag: float = 0.0) -> torch.Tensor:
+    """Plain version: A @ Bm (+ diag on the leading diagonal), batched
+    [B, R, K] x [B, K, C] -> [B, R, C]."""
+    C = A @ Bm
+    if diag:
+        C = C + diag * torch.eye(C.shape[-2], C.shape[-1], dtype=C.dtype,
+                                 device=C.device)
+    return C
+
+
+def rgemm(A: torch.Tensor, Bm: torch.Tensor, *,
+          diag: float = 0.0) -> torch.Tensor:
+    """Batched A @ Bm + diag I: A [B, R, K], Bm [B, K, Cc] -> [B, R, Cc];
+    ``csrc/gtwg.cu::gemm_kernel`` on the card (float32, over k ascending
+    with FMA), :func:`rgemm_reference` on CPU tensors."""
+    B, R, K = A.shape
+    _require(Bm.shape[:2] == (B, K),
+             f"Bm {tuple(Bm.shape)} vs A {tuple(A.shape)}")
+    if not _on_card(A, Bm):
+        return rgemm_reference(A, Bm, diag)
+    lib, _ = build()
+    A, Bm = A.contiguous(), Bm.contiguous()
+    Cc = Bm.shape[-1]
+    C = A.new_empty(B, R, Cc)
+    _check(lib, lib.bggt_rgemm(_ptr(A), _ptr(Bm), _ptr(C), B, R, Cc, K, diag,
+                               int(K % 4 == 0 and _vec16(Cc, A, Bm, C)),
+                               _stream()), "rgemm")
+    rgemm.launches += 1
+    return C
+
+
+rgemm.launches = 0
+
+
 def gtwg(H: torch.Tensor, G: torch.Tensor, W: torch.Tensor | None = None, *,
          lam: torch.Tensor | None = None, s: torch.Tensor | None = None,
          w_hi: float | None = None, reg: float = 0.0) -> torch.Tensor:
@@ -299,6 +350,44 @@ def chol_inverse_unrolled(S: torch.Tensor) -> torch.Tensor:
     return X @ X.mT
 
 
+def chol_inverse(S: torch.Tensor) -> torch.Tensor:
+    """Explicit inverse of SPD [B, p, p] by the unrolled Cholesky (reads the
+    upper rows; no failure check): ``csrc/chol_inverse.cu`` on the card, one
+    block a matrix with its packed upper triangle in shared memory, which
+    bounds p (336 on a Hopper block); :func:`chol_inverse_unrolled` on CPU
+    tensors."""
+    B, p, p2 = S.shape
+    _require(p == p2, f"square matrices expected, got {tuple(S.shape)}")
+    if not _on_card(S):
+        return chol_inverse_unrolled(S)
+    lib, _ = build()
+    need = lib.bggt_chol_inverse_smem_bytes(p)
+    _require(need <= MAX_SMEM_BYTES,
+             f"p={p}: the packed triangle needs {need} bytes of shared "
+             f"memory")
+    S = S.contiguous()
+    out = torch.empty_like(S)
+    _check(lib, lib.bggt_chol_inverse(_ptr(S), _ptr(out), B, p, _stream()),
+           "chol_inverse")
+    chol_inverse.launches += 1
+    return out
+
+
+chol_inverse.launches = 0
+
+
+def schur_inverse(A: torch.Tensor, Mi: torch.Tensor,
+                  reg_s: float) -> torch.Tensor:
+    """S^-1 of the Schur complement S = (A Mi) A^T + reg_s I of a sweep
+    (A [B, p, n], Mi [B, n, n]): two :func:`rgemm` products and
+    :func:`chol_inverse`, the stage the wrapper of :func:`ipm_iter` runs
+    before the iteration kernel where p > :data:`IPM_RESIDENT_P`.  On CPU
+    tensors the same three functions run their plain versions, which are
+    ``_iteration_math``'s with ``chol_inverse_unrolled``."""
+    AMi = rgemm(A, Mi)
+    return chol_inverse(rgemm(AMi, A.mT.contiguous(), diag=reg_s))
+
+
 def ipm_iter_reference(H, q, A, b, G, h, g_active, x, y, lam, s, done, it,
                        best, Mi_in, do_ns: bool, *, reg: float, tol: float,
                        refine_steps: int, ns_steps: int, M=None):
@@ -325,17 +414,21 @@ def ipm_iter_reference(H, q, A, b, G, h, g_active, x, y, lam, s, done, it,
     return x, y, lam, s, done, it, best, Mi
 
 
+IPM_RESIDENT_P = 32   # the iteration kernel forms S itself up to this p
+
+
 def ipm_iter_launch(lib, stream, H, q, A, b, G, h, g_active, M, Mi, x, y,
                     lam, s, bx, by, blam, bs, bmerit, done_i, it, *, reg,
-                    tol, refine_steps) -> None:
-    """Launch the iteration kernel of csrc/ipm_iter.cu (state in place)."""
+                    tol, refine_steps, Si=None) -> None:
+    """Launch the iteration kernel of csrc/ipm_iter.cu (state in place);
+    with ``Si`` (the Schur stage's S^-1, p > 32) its handed variant."""
     B, m, n = G.shape
     p = A.shape[-2]
     eps = torch.finfo(torch.float32).eps
     w_hi = 0.01 / eps
     rc = lib.bggt_ipm_iter(
-        *(_ptr(t) for t in (H, q, A, b, G, h, g_active, M, Mi, x, y, lam, s,
-                            bx, by, blam, bs, bmerit, done_i, it)),
+        *(_ptr(t) for t in (H, q, A, b, G, h, g_active, M, Mi, Si, x, y, lam,
+                            s, bx, by, blam, bs, bmerit, done_i, it)),
         B, n, m, p, max(reg, 1e-7), tol, 1e3 * tol, 1.0 / w_hi, w_hi, eps,
         refine_steps, stream)
     _check(lib, rc, "ipm_iter")
@@ -352,10 +445,12 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
     before the iteration.  ``M``, when given, is the sweep's matrix
     ``gtwg(H, G, lam=lam, s=s, w_hi=0.01 / eps, reg=reg)`` that the caller
     has formed already (for an exact refresh): it is then not formed a
-    second time, and the result is bit for bit the same.  On the card the iterate tensors x, y, lam, s and
-    the ``best`` tuple are updated in place (in contiguous copies where
-    they were not contiguous) and returned; ``done`` (bool) and ``it``
-    (int32) come back as new tensors, with Mi."""
+    second time, and the result is bit for bit the same.  On the card the
+    iterate tensors x, y, lam, s and the ``best`` tuple are updated in
+    place (in contiguous copies where they were not contiguous) and
+    returned; ``done`` (bool) and ``it`` (int32) come back as new tensors,
+    with Mi.  Where p > 32 the Schur stage (:func:`schur_inverse`) runs
+    before the iteration kernel."""
     bx, by, blam, bs, bmerit = best
     B, m, n = G.shape
     p = A.shape[-2]
@@ -367,7 +462,7 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
             ns_steps=ns_steps, M=M)
     _require(n % 128 == 0 and m % 128 == 0, "pad n and m to multiples of 128")
     _require(n <= 2048, f"n={n}: a row of n floats is split over 16 warps")
-    _require(0 < p <= 32, f"p={p}: the Schur block holds at most 32 rows")
+    _require(p > 0, "the sweep needs an equality row")
     for name, t, shape in (("H", H, (B, n, n)), ("Mi", Mi_in, (B, n, n)),
                            ("A", A, (B, p, n)), ("q", q, (B, n)),
                            ("x", x, (B, n)), ("bx", bx, (B, n)),
@@ -382,6 +477,12 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
     _require(it.dtype == torch.int32 and done.dtype == torch.bool,
              "it must be int32 and done bool")
     lib, _ = build()
+    handed = p > IPM_RESIDENT_P
+    if handed:
+        need = lib.bggt_ipm_iter_smem_bytes(n, m, p, 1)
+        _require(need <= MAX_SMEM_BYTES,
+                 f"n={n}, m={m}, p={p}: the vectors need {need} bytes of "
+                 f"shared memory")
     stream = _stream()
     H, q, A, b, G, h, g_active, Mi_in, x, y, lam, s, bx, by, blam, bs, \
         bmerit, it = (t.contiguous() for t in (
@@ -402,10 +503,11 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
             ns_gemm_launch(lib, stream, M, Mi, T, -1.0, 2.0)
             ns_gemm_launch(lib, stream, Mi, T, X, 1.0, 0.0)
             Mi = X
+    Si = schur_inverse(A, Mi, max(reg, 1e-7)) if handed else None
     done_i = done.to(torch.int32)
     ipm_iter_launch(lib, stream, H, q, A, b, G, h, g_active, M, Mi, x, y,
                     lam, s, bx, by, blam, bs, bmerit, done_i, it, reg=reg,
-                    tol=tol, refine_steps=refine_steps)
+                    tol=tol, refine_steps=refine_steps, Si=Si)
     ipm_iter.launches += 1
     return x, y, lam, s, done_i.bool(), it, (bx, by, blam, bs, bmerit), Mi
 
@@ -622,11 +724,14 @@ def spd_inverse(M: torch.Tensor, *, shift: float = 1e-3,
 def launch_counts() -> dict[str, int]:
     """The launch count of each wrapper, by kernel name."""
     return {"gtwg": gtwg.launches, "ipm_iter": ipm_iter.launches,
-            "gj_inverse": gj_inverse.launches}
+            "gj_inverse": gj_inverse.launches, "rgemm": rgemm.launches,
+            "chol_inverse": chol_inverse.launches}
 
 
 def reset_launch_counts() -> None:
     gtwg.launches = 0
     ipm_iter.launches = 0
+    rgemm.launches = 0
+    chol_inverse.launches = 0
     gj_inverse.launches = 0
     gj_inverse.launches_by_form = dict.fromkeys(GJ_FORMS, 0)

@@ -49,14 +49,27 @@ it on the way:
 8. the closed loop (``sim/engine.closed_loop``): the flagship loop of
    tests/test_sim_engine.py (penalty-ground physics, the 1 kHz whole-body
    torque QP, MPC real-time iterations, the gait update every fifth MPC
-   update, a mistimed trot) at batch 128 for 550 ticks, each kind of MPC
+   update, a mistimed trot) at batch 128 for 300 ticks, each kind of MPC
    period replayed as a CUDA graph; every log entry finite and every base
    above 0.15 m; each period's replay against its eager run bit for bit,
    ``gtwg`` and ``ipm_iter`` launched by the gait period (none by the RTI
    period) and held to their plain versions at its shapes; two scenarios
    of one period on the card (float32) against the CPU (float64); eager
    and graphed ms per period and per control tick, ticks/s and the
-   aggregate real-time factor.
+   aggregate real-time factor;
+9. the centroidal RTI (``mpc/centroidal.py``): the JAX package's centroidal
+   acceptance configuration (N=20, 18 sweeps, the force carrier, the
+   settled stand, the standing gait) at batch 128, joints moved by 0.01
+   rad: ``create_initial_run_centroidal`` and ten shifting
+   ``solve_centroidal_step``s through ``gtwg`` at [128, 512, 1792] and the
+   p = 256 ``ipm_iter`` chain (its Schur stage ``rgemm`` and
+   ``chol_inverse``), launches counted; each kernel held to its plain
+   version on one step's calls and timed; one step replayed as a CUDA
+   graph bit for bit; card against CPU from one float64 plan;
+10. the ADMM backend (``qp_backend="admm"``, 1600 iterations a QP) on the
+   bench problem at batch 128, float64: an RTI block eagerly and as a
+   graph replay, bit for bit, beside the interior-point block; card
+   against CPU.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -931,7 +944,8 @@ def phase_cold_start_gj(cfg):
 # ---------------------------------------------------------------------------
 
 LOOP_BATCH = 128
-LOOP_TICKS = 550        # 11 MPC periods; the gait update at ticks 250, 500
+LOOP_TICKS = 300        # 6 MPC periods; the gait update at tick 250 (cut
+                        # from 550 to keep the script near 300 s)
 MPC_EVERY = 50
 GAIT_EVERY = 5
 CONTROL_DT = 0.001
@@ -1216,6 +1230,495 @@ def closed_loop_card_vs_cpu(cfg, wb, sim) -> str:
     return "; ".join(parts)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the centroidal RTI
+# ---------------------------------------------------------------------------
+
+CENT_BATCH = 128
+CENT_STEPS = 10         # RTIs at t = 0.05 k after the initial run
+CENT_PERT = 0.01        # rad, the joints' perturbation per scenario
+CHOL_GAP = 10.0         # chol_inverse: max|dSi| / max|Si| within 10x the plain
+                        # version's own float32-vs-float64 gap on the same S
+CHOL_RES = 2.0          # max|S Si - I| within 2x the plain version's own
+TOL_DEFECT = 1e-3       # card vs CPU float64, the step's defect_l1 (or 10x
+                        # the CPU float32 run's distance, if larger)
+DEFECT_BAR = 1e-2       # tests/test_centroidal.py's defect_l1 bar, held by
+                        # the CPU float64 run of the compared step
+
+
+def centroidal_config():
+    """tests/test_centroidal.py::test_centroidal_closed_loop_stand's
+    configuration: N = 20, dt = 0.05, 18 sweeps a QP, the force carrier."""
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+    return MPCConfig(ipm_iters=18, force_carrier=True).validate()
+
+
+def centroidal_start(cfg, batch: int, device, dtype):
+    """The acceptance test's start, batch first: A1 at the settled stand,
+    the standing gait, x_des the start state; ``batch`` scenarios whose
+    joints are moved by CENT_PERT * N(0, 1) from a seeded numpy generator.
+    Returns (model, params, state, x0 [B, 13], feet [B, E, 3],
+    x_des [B, 12])."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.models import a1, rbd, srb
+    from bilevel_gait_gen_tpu_torch.mpc import centroidal, gait
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    _, _, sim = loop_configs()
+    model = a1.make_a1(device=device)
+    stand = torch.tensor(a1.stand_config(), dtype=dtype, device=device)
+    q0 = engine.settled_stand(model, sim, stand)
+    params = srb.make_srb_params(model, q0)
+    dq = CENT_PERT * np.random.default_rng(1).standard_normal(
+        (batch, model.num_joints))
+    q0s = q0.expand(batch, -1) + torch.cat([
+        torch.zeros(batch, 7, dtype=dtype, device=device),
+        torch.tensor(dq, dtype=dtype, device=device)], dim=-1)
+    x0 = srb.reconstruct_state(params, q0s, torch.zeros(
+        batch, model.nv, dtype=dtype, device=device))
+    feet = rbd.ee_positions(model, q0s)
+    traj = default_trajectory(cfg, gait.make_standing(
+        cfg, dtype=dtype, device=device), x0, feet[..., :2])
+    box = torch.tensor([cfg.ee_box_size] * batch, dtype=dtype, device=device)
+    st = centroidal.make_centroidal_state(cfg, model, traj, box, q0s)
+    return model, params, st, x0, feet, srb.manifold_to_tangent(x0)
+
+
+def straddling_nodes(cfg, sched, t0) -> list[int]:
+    """Nodes whose forward difference (t, t + 1e-4) of the FK rows crosses
+    a phase bound of ``sched`` advanced to ``t0`` (the node times as
+    ``assemble_centroidal`` computes them, in the schedule's dtype)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import gait
+    sh = gait.advance_window(sched, t0, cfg)
+    times = t0[:, None] + cfg.dt * torch.arange(
+        cfg.num_nodes, dtype=t0.dtype, device=t0.device)
+    b = sh.bounds[:, None]                             # [B, 1, E, P+1]
+    tt = times[..., None]                              # [B, N, 1]
+    cross = gait.phase_index(b, tt) != gait.phase_index(b, tt + 1e-4)
+    return sorted(set(cross.any(-1).nonzero()[:, 1].tolist()))
+
+
+def finite_outputs(*trees) -> bool:
+    """Every tensor of ``trees`` finite, but for a warm start's ``gap``,
+    whose inf is the solver's "not a solution" sentinel."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_leaves
+    leaves = []
+    for tree in trees:
+        warm = getattr(tree, "qp_warm", None)
+        if warm is not None:
+            tree = dataclasses.replace(tree, qp_warm=dataclasses.replace(
+                warm, gap=torch.zeros_like(warm.gap)))
+        leaves += tree_leaves(tree)
+    return all(bool(torch.isfinite(t).all()) for t in leaves
+               if t.is_floating_point())
+
+
+def check_schur_stage(args, kw) -> list[dict]:
+    """The Schur stage of a recorded p > 32 ``ipm_iter`` call on its own
+    operands (A, the sweep's Mi): ``rgemm`` for A Mi and (A Mi) A^T against
+    the plain products, ``chol_inverse`` against the plain unrolled
+    Cholesky; each timed beside its plain version, its bound and the one
+    PyTorch call that computes the same function (``bmm``, ``baddbmm``,
+    ``linalg.inv_ex``).  Returns one row per kernel."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    A, Mi = args[2].contiguous(), args[14].contiguous()
+    reg_s = max(kw["reg"], 1e-7)
+    B, p, n = A.shape
+    At = A.mT.contiguous()
+    AMi = kernels.rgemm(A, Mi)
+    S = kernels.rgemm(AMi, At, diag=reg_s)
+    Si = kernels.chol_inverse(S)
+    ref_ami = kernels.rgemm_reference(A, Mi)
+    ref_s = kernels.rgemm_reference(AMi, At, reg_s)
+    ref_si = kernels.chol_inverse_unrolled(S)
+    ref_si64 = kernels.chol_inverse_unrolled(S.double())
+    torch.cuda.synchronize()
+    e_ami, e_s = kc.rel_err(AMi, ref_ami), kc.rel_err(S, ref_s)
+    e_si = kc.rel_err(Si, ref_si)
+    e64 = kc.rel_err(ref_si, ref_si64.float())
+    tol_si = CHOL_GAP * e64
+    # the residual in float64 weighs every entry, the small ones too
+    eye64 = torch.eye(p, dtype=torch.float64, device=A.device)
+    res = float(torch.amax(torch.abs(S.double() @ Si.double() - eye64)))
+    res_ref = float(torch.amax(torch.abs(S.double() @ ref_si.double()
+                                         - eye64)))
+    si_abs = torch.abs(Si).flatten()
+    si_nz = float((si_abs > 0).float().mean())
+    si_med = float(torch.median(si_abs[si_abs > 0]))
+    check(e_ami <= kc.TOL_GTWG, f"rgemm A Mi rel {e_ami:.3e}")
+    check(e_s <= kc.TOL_GTWG, f"rgemm (A Mi) A^T rel {e_s:.3e}")
+    check(e_si <= tol_si, f"chol_inverse rel {e_si:.3e} > {tol_si:.3e}")
+    check(res <= CHOL_RES * res_ref, f"chol_inverse: max|S Si - I| {res:.3e} "
+          f"> {CHOL_RES} x the plain version's {res_ref:.3e}")
+    check(torch.equal(Si, Si.mT), "chol_inverse: S^-1 exactly symmetric")
+    eye = torch.eye(p, device=A.device).expand(B, p, p)
+    t_ami = kc.cuda_ms(lambda: kernels.rgemm(A, Mi))
+    t_s = kc.cuda_ms(lambda: kernels.rgemm(AMi, At, diag=reg_s))
+    rows = [dict(name="rgemm", route="cuda",
+                 source="bilevel_gait_gen_tpu_torch/csrc/gtwg.cu",
+                 replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:155",
+                 max_abs_err=max(float(torch.amax(torch.abs(AMi - ref_ami))),
+                                 float(torch.amax(torch.abs(S - ref_s)))),
+                 max_rel_err=max(e_ami, e_s), tol=kc.TOL_GTWG,
+                 ms=t_ami + t_s,
+                 plain_ms=kc.cuda_ms(lambda: kernels.rgemm_reference(
+                     kernels.rgemm_reference(A, Mi), At, reg_s)),
+                 bound_ms=None, bound_by=None,
+                 library_ms=kc.cuda_ms(lambda: torch.baddbmm(
+                     eye, torch.bmm(A, Mi), At, beta=reg_s)),
+                 shape=[B, p, n], a_mi_ms=t_ami, s_ms=t_s,
+                 a_mi_library_ms=kc.cuda_ms(lambda: torch.bmm(A, Mi)),
+                 s_library_ms=kc.cuda_ms(lambda: torch.baddbmm(
+                     eye, AMi, At, beta=reg_s)))]
+    b_ami = kc.bound_ms(2.0 * B * p * n * n, 4.0 * B * (2 * p * n + n * n))
+    b_s = kc.bound_ms(2.0 * B * p * p * n, 4.0 * B * (2 * p * n + p * p))
+    rows[0]["bound_ms"] = b_ami[0] + b_s[0]
+    rows[0]["bound_by"] = b_ami[1]      # the larger of the two products
+    rows[0]["a_mi_bound_ms"], rows[0]["s_bound_ms"] = b_ami[0], b_s[0]
+    bnd, by = kc.bound_ms(1.0 * B * p ** 3, 4.0 * B * 2 * p * p)
+    rows.append(dict(name="chol_inverse", route="cuda",
+                     source="bilevel_gait_gen_tpu_torch/csrc/chol_inverse.cu",
+                     replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:119",
+                     max_abs_err=float(torch.amax(torch.abs(Si - ref_si))),
+                     max_rel_err=e_si, tol=tol_si, f32_vs_f64=e64,
+                     residual=res, plain_residual=res_ref,
+                     max_abs_si=float(si_abs.max()),
+                     median_nonzero_abs_si=si_med, nonzero_share_si=si_nz,
+                     ms=kc.cuda_ms(lambda: kernels.chol_inverse(S)),
+                     plain_ms=kc.cuda_ms(
+                         lambda: kernels.chol_inverse_unrolled(S), reps=3),
+                     bound_ms=bnd, bound_by=by,
+                     library_ms=kc.cuda_ms(
+                         lambda: torch.linalg.inv_ex(S).inverse),
+                     shape=[B, p]))
+    r0, r1 = rows
+    print(f"[centroidal] Schur stage [{B}, p={p}, n={n}]: rgemm A Mi rel "
+          f"{e_ami:.2e}, (A Mi) A^T rel {e_s:.2e} (<= {kc.TOL_GTWG}); "
+          f"kernel {r0['a_mi_ms']:.3f} + {r0['s_ms']:.3f} ms (bmm "
+          f"{r0['a_mi_library_ms']:.3f}, baddbmm {r0['s_library_ms']:.3f}; "
+          f"bound {r0['a_mi_bound_ms']:.3f} + {r0['s_bound_ms']:.3f} ms); "
+          f"chol_inverse rel {e_si:.2e} (<= {tol_si:.2e}, {CHOL_GAP:g}x the "
+          f"plain float32 vs float64 {e64:.2e}; max|Si| "
+          f"{r1['max_abs_si']:.3e}, median of the nonzero {si_med:.3e}, "
+          f"nonzero share {si_nz:.3f}), max|S Si - I| {res:.3e} (plain "
+          f"{res_ref:.3e}, <= {CHOL_RES:g}x), kernel {r1['ms']:.3f} ms, plain "
+          f"{r1['plain_ms']:.3f} ms, inv_ex {r1['library_ms']:.3f} ms, "
+          f"bound {bnd:.3f} ms ({by})", flush=True)
+    return rows
+
+
+def phase_centroidal(card: str):
+    """Phase 9: the centroidal RTI (``mpc/centroidal.py``) at batch 128,
+    N = 20, float32 on the card: the QP is [n=472, p=256, m=1712], padded
+    to [512, 256, 1792] for the fused sweep.
+
+    1. The entry points, with the kernels' counts set to 0 before and read
+       after: ``create_initial_run_centroidal`` and CENT_STEPS
+       ``solve_centroidal_step``s at t = 0.05 k with the window shifting.
+       Every sweep is exact: one ``gtwg``, one ``ipm_iter``, two ``rgemm``
+       and one ``chol_inverse`` launch a sweep, counted.  Every output
+       finite; the initial run solved in every scenario; every step before
+       the first whose FK rows straddle a phase bound (below) solved in
+       every scenario with alpha >= 0.5 and the joint velocities within
+       their limit (the JAX package's acceptance bar,
+       tests/test_centroidal.py; its defect_l1 < 1e-2 belongs to that
+       test's float64: in float32 the defect is ~30x larger, on the CPU as
+       on the card, so it is printed here and held in 4. to the CPU runs of
+       one step, the float64 one to the bar).  A fault of the
+       reference, reproduced: the FK rows' foot velocity is a forward
+       difference over (t, t + 1e-4), and in float32 the node time
+       t0 + 15 dt at t0 = 0.15 rounds one ulp below the standing gait's
+       chained-stance bound 0.9, so the difference jumps between two
+       stance slots' footholds and the QP loses its feasible point
+       (tests/test_torch_centroidal.py pins it against the JAX package);
+       the steps from there on are printed, not gated.
+    2. The kernels on the calls of step 1 (gated and solved) recorded by
+       ``kernel_checks``: ``gtwg`` at [128, 512, 1792], the sweep at
+       p = 256, the Schur stage on its own operands; each held to its
+       plain version and timed.
+    3. Step 1 captured as a CUDA graph, its replay held to the eager step
+       bit for bit; eager and graphed ms.
+    4. Card against CPU: two scenarios planned once on the CPU in float64,
+       one step from there on the card (float32), on the CPU in float64
+       and float32; positions, cost and defect_l1 held to float64.
+    Returns (the launches of step 1, the kernel rows of step 2)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import centroidal
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
+    t_phase = time.perf_counter()
+    cfg = centroidal_config()
+    B = CENT_BATCH
+    model, params, st, x0, feet, x_des = centroidal_start(
+        cfg, B, DEVICE, torch.float32)
+
+    def step(s, t0):
+        return centroidal.solve_centroidal_step(cfg, model, params, s, x0, t0,
+                                                feet, x_des)
+
+    # 1. the entry points
+    kernels.reset_launch_counts()
+    (st, stats0), init_ms = timed_ms(
+        centroidal.create_initial_run_centroidal, cfg, model, params, st, x0,
+        feet, x_des)
+    check(bool(stats0.solved.all()), "the centroidal initial run solved in "
+          "every scenario")
+    st_init = st
+    step_ms, per_step, gated = [], [], True
+    for k in range(1, CENT_STEPS + 1):
+        t0 = torch.full((B,), 0.05 * k, device=x0.device)
+        cross = straddling_nodes(cfg, st.traj.sched, t0)
+        gated = gated and not cross
+        (st, stats), ms = timed_ms(step, st, t0)
+        step_ms.append(ms)
+        check(finite_outputs(st, stats),
+              f"centroidal step {k}: every output finite")
+        row = dict(step=k, straddling_nodes=cross, gated=gated,
+                   solved=float(stats.solved.float().mean()),
+                   alpha_min=float(stats.alpha.min()),
+                   defect_max=float(stats.defect_l1.max()),
+                   vj_max=float(st.vj.abs().max()))
+        per_step.append(row)
+        if gated:
+            check(row["solved"] == 1.0 and row["alpha_min"] >= 0.5
+                  and row["vj_max"] <= float(model.velocity_limit[0]),
+                  f"centroidal step {k}: the acceptance bar {row}")
+    check(per_step[0]["gated"], "the first centroidal step is gated")
+    launches = kernels.launch_counts()
+    sweeps = (cfg.init_run_iters + CENT_STEPS) * cfg.ipm_iters
+    want = {"gtwg": sweeps, "ipm_iter": sweeps, "gj_inverse": 0,
+            "rgemm": 2 * sweeps, "chol_inverse": sweeps}
+    check(launches == want, f"centroidal launches {launches}, not {want}")
+    check(tuple(st.vj.shape) == (B, cfg.num_nodes, model.num_joints),
+          "joint velocities' shape")
+
+    # 2. the kernels on the calls of step 1, from the initial run's plan
+    t_1 = torch.full((B,), 0.05, device=x0.device)
+    calls = kc.record_kernel_calls(lambda: step(st_init, t_1))
+    krows = kc.check_recorded_calls(calls, "centroidal")
+    key = next(k for k in calls if k[0] == "ipm_iter")
+    schur_rows = check_schur_stage(*calls[key])
+
+    # 3. step 1 as a CUDA graph
+    eager, eager_ms = timed_ms(step, st_init, t_1)
+    g, capture_ms = timed_ms(lambda: Graphed(step, st_init, t_1))
+    n_out = check_bitwise(g(), eager, "graphed centroidal step")
+    graph_ms = [timed_ms(g)[1] for _ in range(3)]
+    captured = dict(g.captured_launches)
+    g.close()
+
+    # 4. card against CPU
+    cmp = centroidal_card_vs_cpu(cfg)
+    print(f"[centroidal] {card}; batch {B}, N={cfg.num_nodes}, QP [n=472, "
+          f"p=256, m=1712] padded to [512, 256, 1792]: create_initial_run "
+          f"({cfg.init_run_iters} SQP iterations) {init_ms:.0f} ms, solved "
+          f"{float(stats0.solved.float().mean()):.4f}, then {CENT_STEPS} "
+          f"steps, ms {', '.join(f'{t:.0f}' for t in step_ms)}; launches "
+          f"{launches}; per step (gated until the first straddle): "
+          + "; ".join(f"{r['step']}{'' if r['gated'] else '*'}: solved "
+                      f"{r['solved']:.3f}, alpha >= {r['alpha_min']:.3f}, "
+                      f"defect_l1 <= {r['defect_max']:.2e}, max|v_j| "
+                      f"{r['vj_max']:.3g}"
+                      + (f", nodes {r['straddling_nodes']} straddle"
+                         if r["straddling_nodes"] else "")
+                      for r in per_step), flush=True)
+    print(f"[centroidal] step 1: eager {eager_ms:.1f} ms, capture (2 "
+          f"warm-up calls included) {capture_ms:.0f} ms, graphed "
+          f"{', '.join(f'{t:.1f}' for t in graph_ms)} ms; replay vs eager "
+          f"bit for bit on all {n_out} outputs; captured launches "
+          f"{captured}", flush=True)
+    print(f"[centroidal] card vs CPU, 2 scenarios, one step from one plan: "
+          f"{cmp}", flush=True)
+    print(f"[centroidal] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, krows, schur_rows, dict(
+        eager_step_ms=eager_ms, graphed_step_ms=float(np.median(graph_ms)),
+        steps_ms=step_ms, init_ms=init_ms, per_step=per_step)
+
+
+def centroidal_card_vs_cpu(cfg) -> str:
+    """Two scenarios of phase 9's start, planned once on the CPU in float64
+    (create_initial_run_centroidal), then one step at t = 0.05 from that
+    plan on the card in float32, on the CPU in float64 and in float32.  The
+    planned COM positions are held to float64 within 10x the CPU float32
+    run's own distance (at least TOL_BASE), the step's cost to 10x its
+    relative distance (at least TOL_OBJ), the step's defect_l1 to 10x its
+    distance (at least TOL_DEFECT); every scenario solved on the card, and
+    the float64 run within the JAX package's acceptance bar DEFECT_BAR (in
+    float32 the defect is ~30x the float64 one, on the CPU as on the card,
+    so phase 9's steps are not held to that bar)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.models import a1
+    from bilevel_gait_gen_tpu_torch.mpc import centroidal
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    _, params, st, x0, feet, x_des = centroidal_start(cfg, 2, "cpu",
+                                                      torch.float64)
+    model64 = a1.make_a1(device="cpu")
+    st, _ = centroidal.create_initial_run_centroidal(cfg, model64, params, st,
+                                                     x0, feet, x_des)
+    runs = {}
+    for key, dev, dtype in (("card", DEVICE, torch.float32),
+                            ("cpu32", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        def conv(a):
+            return (a.to(device=dev, dtype=dtype) if a.is_floating_point()
+                    else a.to(dev))
+        st2, stats = centroidal.solve_centroidal_step(
+            cfg, a1.make_a1(device=dev), tree_map(conv, params),
+            tree_map(conv, st), conv(x0), torch.full((2,), 0.05, device=dev,
+                                                     dtype=dtype),
+            conv(feet), conv(x_des))
+        if key == "card":
+            check(bool(stats.solved.all()), "card vs CPU: the card's step "
+                  "solved")
+        runs[key] = (st2.traj.x_man[..., :3].double().cpu(),
+                     stats.cost.double().cpu(),
+                     stats.defect_l1.double().cpu())
+    pos64, cost64, def64 = runs["cpu64"]
+    d_card = float(torch.amax(torch.abs(runs["card"][0] - pos64)))
+    d32 = float(torch.amax(torch.abs(runs["cpu32"][0] - pos64)))
+    tol = max(10.0 * d32, TOL_BASE)
+    check(d_card <= tol, f"card vs CPU, planned positions: {d_card:.3e} > "
+          f"{tol:.3e}")
+    rel = float(torch.amax(torch.abs(runs["card"][1] - cost64)
+                           / torch.clamp_min(cost64.abs(), 1.0)))
+    rel32 = float(torch.amax(torch.abs(runs["cpu32"][1] - cost64)
+                             / torch.clamp_min(cost64.abs(), 1.0)))
+    tol_c = max(10.0 * rel32, TOL_OBJ)
+    check(rel <= tol_c, f"card vs CPU, step cost rel {rel:.3e} > "
+          f"{tol_c:.3e}")
+    e_def = float(torch.amax(torch.abs(runs["card"][2] - def64)))
+    e_def32 = float(torch.amax(torch.abs(runs["cpu32"][2] - def64)))
+    tol_d = max(10.0 * e_def32, TOL_DEFECT)
+    check(e_def <= tol_d, f"card vs CPU, step defect_l1 {e_def:.3e} > "
+          f"{tol_d:.3e}")
+    check(float(def64.max()) < DEFECT_BAR, f"CPU float64 step defect_l1 "
+          f"{def64.tolist()}, not < {DEFECT_BAR}")
+    return (f"planned positions max|card - cpu64| {d_card:.3e} m (cpu32 "
+            f"{d32:.3e}; limit {tol:.3e}); step cost rel {rel:.3e} (cpu32 "
+            f"{rel32:.3e}; limit {tol_c:.3e}); costs card "
+            f"{runs['card'][1].tolist()} cpu64 {cost64.tolist()}; defect_l1 "
+            f"card {runs['card'][2].tolist()} cpu32 "
+            f"{runs['cpu32'][2].tolist()} cpu64 {def64.tolist()} (< "
+            f"{DEFECT_BAR}), max|card - cpu64| {e_def:.3e} (cpu32 "
+            f"{e_def32:.3e}; limit {tol_d:.3e})")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the ADMM backend
+# ---------------------------------------------------------------------------
+
+ADMM_ITERS = 1600       # tests/test_admm.py's RTI on the ADMM backend
+ADMM_BLOCK = 3          # RTIs in phase 10's block (the bench's has 9: ~55
+                        # launches an ADMM iteration, ~800,000 a block)
+TOL_ADMM_POS = 1e-6     # m, card against CPU, both float64
+TOL_ADMM_COST = 1e-6    # relative, the same
+
+
+def phase_admm(cfg):
+    """Phase 10: ``solve_step`` with ``qp_backend="admm"`` on the bench
+    problem (batch 128, N = 20, the trot), ADMM_ITERS iterations a QP, in
+    float64: in float32 the ADMM backend is non-finite on the MPC QP, in
+    the JAX package as in the port (the Ruiz equilibration scales a masked,
+    all-zero equality row by 1e4 a sweep, 1e40 after ten, past float32's
+    range, and u d_c = 0 inf = NaN); one float32 RTI shows it, printed.
+    One RTI block (``cadence.rti_block``, ADMM_BLOCK RTIs) eagerly with the
+    kernels' counts set to 0 (no hand-written kernel on this path) and as a
+    CUDA graph replay, held to the eager block bit for bit; every output
+    finite; the solved share, qp_pri and the ADMM iterations printed beside
+    the ms a block, and the interior-point block's ms (float32, graphed) in
+    the same run.  Then two scenarios of one RTI on the card against the
+    CPU, both in float64, within TOL_ADMM_POS and TOL_ADMM_COST."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import cadence, solver
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
+    t_phase = time.perf_counter()
+    acfg = dataclasses.replace(cfg, qp_backend="admm", admm_iters=ADMM_ITERS)
+    pr = make_problem(acfg, BATCH, device=DEVICE, dtype=torch.float64)
+
+    def block(c, prob):
+        return lambda st, *rest: cadence.rti_block(c, prob.params, st, *rest,
+                                                   ADMM_BLOCK)
+
+    kernels.reset_launch_counts()
+    eager, eager_ms = timed_ms(block(acfg, pr), *pr.loop_args())
+    launches = kernels.launch_counts()
+    check(not any(launches.values()), f"no kernel on the ADMM path: "
+          f"{launches}")
+    st, _, solved = eager
+    check(finite_outputs(*eager), "ADMM block: every output finite")
+    g, capture_ms = timed_ms(lambda: Graphed(block(acfg, pr),
+                                             *pr.loop_args()))
+    n_out = check_bitwise(g(), eager, "graphed ADMM block")
+    graph_ms = [timed_ms(g)[1] for _ in range(2)]
+    g.close()
+    pr32 = make_problem(cfg, BATCH, device=DEVICE, dtype=torch.float32)
+    gp = Graphed(block(cfg, pr32), *pr32.loop_args())
+    pdip_ms = [timed_ms(gp)[1] for _ in range(2)]
+    gp.close()
+    one = solver.solve_step(acfg, pr.params, st, *pr.loop_args()[1:])[1]
+    iters = st.qp_warm.iters.float()
+    pr_f32 = make_problem(acfg, BATCH, device=DEVICE, dtype=torch.float32)
+    st32, stats32 = solver.solve_step(acfg, pr_f32.params,
+                                      *pr_f32.loop_args())
+    nonfinite32 = int((~torch.isfinite(st32.qp_warm.x).all(-1)).sum())
+    cmp = admm_card_vs_cpu(acfg)
+    print(f"[admm] batch {BATCH}, N={cfg.num_nodes}, float64, {ADMM_ITERS} "
+          f"ADMM iterations a QP, a block of {ADMM_BLOCK} RTIs: eager "
+          f"{eager_ms:.0f} ms, capture (2 warm-up calls included) "
+          f"{capture_ms:.0f} ms, graphed "
+          f"{', '.join(f'{t:.0f}' for t in graph_ms)} ms (the "
+          f"interior-point block, float32, graphed: "
+          f"{', '.join(f'{t:.0f}' for t in pdip_ms)} ms); replay vs eager "
+          f"bit for bit on all {n_out} outputs; solved share "
+          f"{float(solved.float().mean()):.4f} (last RTI "
+          f"{float(solved[-1].float().mean()):.4f}); the next RTI's qp_pri "
+          f"median {float(one.qp_pri.median()):.3e}, max "
+          f"{float(one.qp_pri.max()):.3e}; ADMM iterations of the last QP "
+          f"mean {float(iters.mean()):.0f}, min {float(iters.min()):.0f}, "
+          f"max {float(iters.max()):.0f}; launches {launches}; in float32 "
+          f"one RTI's solution is non-finite in {nonfinite32} of {BATCH} "
+          f"scenarios (solved {float(stats32.solved.float().mean()):.4f}), "
+          f"as in the JAX package", flush=True)
+    print(f"[admm] card vs CPU, float64, 2 scenarios, one RTI: {cmp}",
+          flush=True)
+    print(f"[admm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(eager_block_ms=eager_ms,
+                graphed_block_ms=float(np.median(graph_ms)),
+                pdip_graphed_block_ms=float(np.median(pdip_ms)),
+                float32_nonfinite=nonfinite32)
+
+
+def admm_card_vs_cpu(acfg) -> str:
+    """Two scenarios of one RTI on the ADMM backend, float64 on the card
+    and on the CPU (the float32 runs are non-finite, see phase_admm): the
+    planned positions within TOL_ADMM_POS, the cost within TOL_ADMM_COST."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import solver
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    runs = {}
+    for key, dev in (("card", DEVICE), ("cpu64", "cpu")):
+        pr = make_problem(acfg, 2, device=dev, dtype=torch.float64)
+        st, stats = solver.solve_step(acfg, pr.params, *pr.loop_args())
+        check(bool(stats.solved.all()), f"ADMM RTI on {key}: solved")
+        runs[key] = (st.traj.x_man[..., :3].cpu(), stats.cost.cpu())
+    d = float(torch.amax(torch.abs(runs["card"][0] - runs["cpu64"][0])))
+    rel = float(torch.amax(torch.abs(runs["card"][1] - runs["cpu64"][1])
+                           / torch.clamp_min(runs["cpu64"][1].abs(), 1.0)))
+    check(d <= TOL_ADMM_POS, f"ADMM card vs CPU, planned positions {d:.3e}")
+    check(rel <= TOL_ADMM_COST, f"ADMM card vs CPU, cost rel {rel:.3e}")
+    return (f"planned positions max|card - cpu| {d:.3e} m (limit "
+            f"{TOL_ADMM_POS}); cost rel {rel:.3e} (limit {TOL_ADMM_COST}); "
+            f"costs card {runs['card'][1].tolist()}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -1234,19 +1737,31 @@ def main() -> int:
     phase_rti_kernel(cfg)
     gj_launches, gj_forms = phase_cold_start_gj(cfg)
     loop_launches, loop_rows = phase_closed_loop(card)
+    cent_launches, cent_rows, schur_rows, cent_ms = phase_centroidal(card)
+    admm_ms = phase_admm(cfg)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
-    # gj_inverse from the cold start + cycle under "gj" (phase 7); both
-    # paths' counts are kept beside them
+    # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
+    # chol_inverse from the centroidal RTI (phase 9); every path's counts are
+    # kept beside them
+    rows += schur_rows
     for row in rows:
         name = row["name"]
-        row["launches"] = launches.get(name, gj_launches[name])
+        path = (launches if name in launches else
+                gj_launches if name in gj_launches else cent_launches)
+        row["launches"] = path[name]
         row["launches_by_path"] = {"chol_cadence": launches.get(name, 0),
-                                   "gj_cold_start": gj_launches[name],
-                                   "closed_loop": loop_launches[name]}
+                                   "gj_cold_start": gj_launches.get(name, 0),
+                                   "closed_loop": loop_launches[name],
+                                   "centroidal_rti": cent_launches[name],
+                                   "admm_block": 0}
         row["closed_loop_checks"] = [r for r in loop_rows
                                      if r["kernel"] == name]
+        row["centroidal_checks"] = [r for r in cent_rows
+                                    if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
+    print(f"[paths] centroidal step ms {json.dumps(cent_ms)}; ADMM block ms "
+          f"{json.dumps(admm_ms)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

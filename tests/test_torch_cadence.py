@@ -179,15 +179,44 @@ def no_host_data(monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
 
 
-@pytest.mark.parametrize("entry", ["solve_step", "gait_opt_update", "cycle"])
-def test_per_call_path_copies_nothing_from_the_host(warm, no_host_data,
-                                                    entry):
+@pytest.fixture(scope="module")
+def centroidal_warm(warm):
+    """The centroidal RTI on the bench problem's scenarios (the A1 at its
+    stand), after one step that builds the constants; the ADMM backend's
+    configuration after one step of it."""
+    from bilevel_gait_gen_tpu_torch.models import a1
+    from bilevel_gait_gen_tpu_torch.mpc import centroidal
+    pr, st = warm
+    dtype = pr.x0s.dtype
+    model = a1.make_a1(device="cpu")
+    q0 = torch.tensor(a1.stand_config(), dtype=dtype).expand(B, -1)
+    cst = centroidal.make_centroidal_state(BENCH, model, st.traj, st.ee_box,
+                                           q0)
+    cst = centroidal.solve_centroidal_step(BENCH, model, pr.params, cst,
+                                           *pr.loop_args()[1:])[0]
+    admm_cfg = dataclasses.replace(BENCH, qp_backend="admm", admm_iters=40)
+    ast = solver.solve_step(admm_cfg, pr.params, st, *pr.loop_args()[1:])[0]
+    return model, cst, admm_cfg, ast
+
+
+@pytest.mark.parametrize("entry", ["solve_step", "gait_opt_update", "cycle",
+                                   "solve_centroidal_step",
+                                   "solve_step_admm"])
+def test_per_call_path_copies_nothing_from_the_host(warm, centroidal_warm,
+                                                    no_host_data, entry):
     pr, st = warm
     rest = pr.loop_args()[1:]
     if entry == "solve_step":
         solver.solve_step(BENCH, pr.params, st, *rest)
     elif entry == "gait_opt_update":
         bilevel.gait_opt_update(BENCH, pr.params, st, *rest)
+    elif entry == "solve_centroidal_step":
+        from bilevel_gait_gen_tpu_torch.mpc import centroidal
+        model, cst = centroidal_warm[:2]
+        centroidal.solve_centroidal_step(BENCH, model, pr.params, cst, *rest)
+    elif entry == "solve_step_admm":
+        admm_cfg, ast = centroidal_warm[2:]
+        solver.solve_step(admm_cfg, pr.params, ast, *rest)
     else:
         cadence.cycle(BENCH, pr.params, st, *rest, 2)
 
@@ -287,7 +316,8 @@ def test_replay_gives_the_eager_bits(card, loop):
     if loop == "cycle":
         n = BENCH.ls_ipm_iters + BENCH.ipm_grad_polish
         assert g.captured_launches == {"gtwg": n, "ipm_iter": n,
-                                       "gj_inverse": 0}
+                                       "gj_inverse": 0, "rgemm": 0,
+                                       "chol_inverse": 0}
         before = kernels.launch_counts()
         g()
         assert kernels.launch_counts() == before

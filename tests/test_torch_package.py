@@ -39,6 +39,8 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.control.wbqp",
     "bilevel_gait_gen_tpu_torch.control.mpc_controller",
     "bilevel_gait_gen_tpu_torch.sim.engine",
+    "bilevel_gait_gen_tpu_torch.mpc.centroidal",
+    "bilevel_gait_gen_tpu_torch.ops.admm",
     "chip_smoke",
     "bench_torch",
 ])
@@ -257,13 +259,25 @@ def _entry_points():
         "convert.tensor": lambda **k: convert.tensor(np.zeros(3), **k),
         "convert.from_srb_params": lambda **k: convert.from_srb_params(
             _jax_state()[1], **k).mass,
+        "convert.from_centroidal_state": lambda **k: (
+            convert.from_centroidal_state(_jax_centroidal_state(), **k)
+            .configs),
     }
+
+
+def _jax_centroidal_state():
+    from bilevel_gait_gen_tpu.mpc import centroidal as jcentroidal
+    model, _, state, _, _ = _jax_state()
+    q0 = jnp.asarray(ja1.stand_config(), jnp.float64)
+    return jcentroidal.make_centroidal_state(CFG, model, state.traj,
+                                             state.ee_box, q0)
 
 
 @pytest.mark.parametrize("name", ["make_problem", "make_a1", "make_trot",
                                   "make_standing", "init_curvature",
                                   "convert.tensor",
-                                  "convert.from_srb_params"])
+                                  "convert.from_srb_params",
+                                  "convert.from_centroidal_state"])
 def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
     """device=None means the CUDA device: without one the entry point
     raises and says so (nothing carries on on the CPU unasked); with
