@@ -328,13 +328,16 @@ def check_recorded_calls(calls: dict, label: str) -> list[dict]:
             plain = cuda_ms(lambda: kernels.gtwg_reference(H, G, W, reg))
             B, m, n = G.shape
             bnd, by = bound_ms(*gtwg_work(B, m, n))
+            ns_bnd, ns_by = bound_ms(2.0 * B * n ** 3, 4.0 * B * 3 * n * n)
             rows.append(dict(kernel="gtwg", config=label,
                              shape=[B, n, m], max_rel_err=err,
                              max_abs_err=abs_err, tol=TOL_GTWG,
                              ms=t["gtwg"], plain_ms=plain, bound_ms=bnd,
                              bound_by=by, library_ms=t["gtwg_library"],
                              ns_gemm_ms=t["ns_gemm"],
-                             ns_gemm_library_ms=t["ns_gemm_library"]))
+                             ns_gemm_library_ms=t["ns_gemm_library"],
+                             ns_gemm_bound_ms=ns_bnd,
+                             ns_gemm_bound_by=ns_by))
             continue
         _, shape, do_ns, handed_m = key
         c = compare_ipm_iter(args, kw, f"{label} {list(shape)}")
@@ -381,5 +384,11 @@ def check_recorded_calls(calls: dict, label: str) -> list[dict]:
               f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})"
               + (f", baddbmm {r['library_ms']:.3f} ms"
-                 if r["library_ms"] is not None else ""), flush=True)
+                 if r["library_ms"] is not None else "")
+              + (f"; the Newton-Schulz product [{r['shape'][0]}, "
+                 f"{r['shape'][1]}, {r['shape'][1]}]: kernel "
+                 f"{r['ns_gemm_ms']:.3f} ms, baddbmm "
+                 f"{r['ns_gemm_library_ms']:.3f} ms, bound "
+                 f"{r['ns_gemm_bound_ms']:.3f} ms ({r['ns_gemm_bound_by']})"
+                 if "ns_gemm_ms" in r else ""), flush=True)
     return rows

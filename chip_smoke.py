@@ -69,7 +69,13 @@ it on the way:
 10. the ADMM backend (``qp_backend="admm"``, 1600 iterations a QP) on the
    bench problem at batch 128, float64: an RTI block eagerly and as a
    graph replay, bit for bit, beside the interior-point block; card
-   against CPU.
+   against CPU;
+11. the other robot families at batch 128: the Adam biped under its
+   shipped ``configs/adam_march.yaml`` (lanes [512, 128, 640, p=28]) and
+   the Mini Cheetah under bench.py's configuration: the cold start and one
+   cadence cycle, eagerly and as a graph replay bit for bit, solved_frac
+   >= 0.95, launches counted (no Schur stage at p <= 32); the kernels held
+   to their plain versions at Adam's shapes and timed; card against CPU.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -1719,6 +1725,240 @@ def admm_card_vs_cpu(acfg) -> str:
             f"costs card {runs['card'][1].tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other robot families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("adam", "mini_cheetah")
+FAMILY_BATCH = 128
+FAMILY_REPLAYS = 3      # graphed cycles timed a family (cut these first if
+                        # the script must shrink)
+FAMILY_SOLVED = 0.95    # bench.py's gate on solved_frac
+ADAM_YAML = "bilevel_gait_gen_tpu_torch/configs/adam_march.yaml"
+
+
+def family_config(family: str):
+    """Adam: configs/adam_march.yaml as it stands (N = 20, two point feet,
+    Raibert capture stepping, double support, the force carrier, force
+    bound 250 N); the Mini Cheetah: bench.py's configuration."""
+    from bilevel_gait_gen_tpu_torch.utils.config import load_yaml
+    if family == "adam":
+        return load_yaml(str(REPO / ADAM_YAML))
+    return bench_config()
+
+
+def family_problem(family: str, cfg, batch: int, device, dtype, seed=0):
+    """tests/test_models_multi.py:43-75's start for ``family`` ("adam" or
+    "mini_cheetah"), batch first: the model at its stand, the trot, x_des
+    the stand itself, the warm start the solver's sentinel; each
+    scenario's measured state moved as bench.py's make_problem moves the
+    A1's (``problem.perturbations``: 0.02 N(0, 1) from ``seed``, none on
+    the quaternion).  Returns a ``problem.Problem``."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.models import adam, mini_cheetah, rbd, srb
+    from bilevel_gait_gen_tpu_torch.mpc import gait, solver
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
+    from bilevel_gait_gen_tpu_torch.problem import Problem, perturbations
+    if family == "adam":
+        model, stand = adam.make_adam(device=device), adam.stand_config()
+    else:
+        model = mini_cheetah.make_mini_cheetah(device=device)
+        stand = mini_cheetah.stand_config()
+    q0 = torch.tensor(stand, device=device).to(dtype)
+    params = srb.make_srb_params(model, q0)
+    x0 = srb.reconstruct_state(params, q0, torch.zeros(
+        model.nv, dtype=dtype, device=device))
+    x0s = x0.expand(batch, -1)
+    feets = rbd.ee_positions(model, q0).expand(batch, -1, -1).contiguous()
+    traj = default_trajectory(cfg, gait.make_trot(cfg, dtype=dtype,
+                                                  device=device),
+                              x0s, feets[..., :2])
+    box = torch.tensor(cfg.ee_box_size, dtype=dtype,
+                       device=device).expand(batch, 2).contiguous()
+    pert = torch.tensor(perturbations(batch, seed), device=device).to(dtype)
+    return Problem(params=params, states=solver.make_state(cfg, traj, box),
+                   x0s=x0s + pert,
+                   t0=torch.zeros(batch, dtype=dtype, device=device),
+                   feets=feets, x_des=srb.manifold_to_tangent(x0).expand(
+                       batch, -1).contiguous())
+
+
+def family_run(cfg, pr):
+    """The cold start (``solver.create_initial_run``), then one cadence
+    cycle from its plan: (initial state, its stats, the cycle's results)."""
+    from bilevel_gait_gen_tpu_torch.mpc import cadence, solver
+    st, stats = solver.create_initial_run(cfg, pr.params, pr.states, pr.x0s,
+                                          pr.feets, pr.x_des, pr.t0)
+    return st, stats, cadence.cycle(cfg, pr.params, st,
+                                    *pr.loop_args()[1:], FREQ)
+
+
+def phase_families(card: str):
+    """Phase 11: the Adam biped (its shipped configs/adam_march.yaml) and
+    the Mini Cheetah (bench.py's configuration), batch first at
+    FAMILY_BATCH, float32 on the card.  Adam's QP is [n=116, p=28, m=616],
+    its gait update's lanes [512, 128, 640, p=28] after padding: the fused
+    chain at a p just under the resident limit of 32 and at half a column
+    block; the Mini Cheetah has the A1's shapes and its own masses.  For
+    each family:
+
+    1. ``solver.create_initial_run`` with the kernels' counts set to 0
+       before and read after; every output finite, solved_frac >= 0.95.
+    2. One ``cadence.cycle`` (FREQ - 1 RTIs, then the gait update) eagerly,
+       counts set to 0 before and read after: ``gtwg`` and ``ipm_iter``
+       launched, ``rgemm`` and ``chol_inverse`` not (p <= 32 stays
+       resident), ``gj_inverse`` not; every output finite, the cycle's
+       solved_frac >= 0.95.
+    3. The same cycle captured by ``Graphed``, its replay held to the eager
+       cycle bit for bit, FAMILY_REPLAYS replays timed; the captured
+       launches equal the eager counts.
+    4. Adam only: the kernels on the cycle's own calls (``kernel_checks``):
+       ``gtwg`` at [512, 128, 640] and the Newton-Schulz product at
+       [512, 128, 128] (with ``baddbmm``), the sweep with its Newton-Schulz
+       refresh and the exact sweep handed M at [512, 128, 640, p=28], each
+       held to its plain version, timed and set beside its bound.
+    5. Card against CPU (:func:`family_card_vs_cpu`).
+    Returns (launches a cycle by family, the kernel rows of 4, ms)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import cadence, solver
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
+    t_phase = time.perf_counter()
+    B = FAMILY_BATCH
+    launches, krows, times = {}, [], {}
+    for family in FAMILIES:
+        cfg = family_config(family)
+        pr = family_problem(family, cfg, B, DEVICE, torch.float32)
+
+        # 1. the cold start
+        kernels.reset_launch_counts()
+        (st, stats), init_ms = timed_ms(
+            solver.create_initial_run, cfg, pr.params, pr.states, pr.x0s,
+            pr.feets, pr.x_des, pr.t0)
+        init_launches = kernels.launch_counts()
+        init_frac = float(stats.solved.float().mean())
+        check(finite_outputs(st, stats), f"{family}: the cold start's "
+              f"outputs finite")
+        check(init_frac >= FAMILY_SOLVED, f"{family}: the cold start's "
+              f"solved_frac {init_frac:.4f} >= {FAMILY_SOLVED}")
+
+        # 2. one cycle eagerly
+        def cycle(s, *rest):
+            return cadence.cycle(cfg, pr.params, s, *rest, FREQ)
+
+        args = (st, *pr.loop_args()[1:])
+        kernels.reset_launch_counts()
+        eager, eager_ms = timed_ms(cycle, *args)
+        counts = kernels.launch_counts()
+        st2, solved, gres, frac = eager
+        check(finite_outputs(st2, gres.rti_stats) and all_finite(st2, [gres]),
+              f"{family}: the cycle's outputs finite")
+        check(float(frac) >= FAMILY_SOLVED, f"{family}: the cycle's "
+              f"solved_frac {float(frac):.4f} >= {FAMILY_SOLVED}")
+        check(counts["gtwg"] > 0 and counts["ipm_iter"] > 0,
+              f"{family}: the fused kernels launched in the cycle {counts}")
+        check(counts["rgemm"] == counts["chol_inverse"]
+              == counts["gj_inverse"] == 0,
+              f"{family}: p <= 32 stays resident, no Schur stage and no "
+              f"Gauss-Jordan inverse {counts}")
+        launches[family] = counts
+
+        # 3. the cycle as a CUDA graph
+        g, capture_ms = timed_ms(lambda: Graphed(cycle, *args))
+        n_out = check_bitwise(g(), eager, f"{family}: graphed cycle")
+        graph_ms = [timed_ms(g)[1] for _ in range(FAMILY_REPLAYS)]
+        captured = dict(g.captured_launches)
+        g.close()
+        check(captured == counts, f"{family}: captured launches {captured} "
+              f"!= eager {counts}")
+
+        # 4. the kernels at Adam's shapes
+        if family == "adam":
+            rows = kc.check_recorded_calls(
+                kc.record_kernel_calls(lambda: cycle(*args)), "adam")
+            shapes = {(r["kernel"], tuple(r["shape"][1:])) for r in rows}
+            check({("gtwg", (128, 640)), ("ipm_iter", (128, 640, 28))}
+                  <= shapes, f"adam: the kernels at [512, 128, 640, p=28] "
+                  f"{sorted(shapes)}")
+            krows += rows
+
+        # 5. card against CPU
+        cmp = family_card_vs_cpu(family, cfg)
+        accept = float(gres.accepted.float().mean())
+        times[family] = dict(init_ms=init_ms, eager_cycle_ms=eager_ms,
+                             graphed_cycle_ms=graph_ms, capture_ms=capture_ms,
+                             init_solved_frac=init_frac,
+                             cycle_solved_frac=float(frac),
+                             accept_rate=accept)
+        print(f"[families] {family} ({card}); batch {B}, N={cfg.num_nodes}, "
+              f"E={cfg.num_ee}, float32: create_initial_run "
+              f"({cfg.init_run_iters} SQP iterations) {init_ms:.0f} ms, "
+              f"solved_frac {init_frac:.4f}, launches {init_launches}; one "
+              f"cycle (FREQ={FREQ}) eager {eager_ms:.1f} ms, capture (2 "
+              f"warm-up calls included) {capture_ms:.0f} ms, graphed "
+              f"{', '.join(f'{t:.1f}' for t in graph_ms)} ms, replay vs "
+              f"eager bit for bit on all {n_out} outputs; solved_frac "
+              f"{float(frac):.4f}, gait accept rate {accept:.3f}; launches "
+              f"a cycle {counts}; card vs CPU, 2 scenarios: {cmp}",
+              flush=True)
+    print(f"[families] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, krows, times
+
+
+def family_card_vs_cpu(family: str, cfg) -> str:
+    """Two scenarios of phase 11's start, made once in float64 and handed
+    to three runs of :func:`family_run` (the cold start, then one cycle):
+    on the card in float32, on the CPU in float64 and in float32.  The
+    planned COM positions and the costs (the cold start's, the gait
+    update's embedded RTI's) of the card are held to float64 within 10x
+    the CPU float32 run's distance (phase 9's rule: at least TOL_BASE for
+    positions, TOL_OBJ relative for costs); the card's solved flags (the
+    cold start's, the cycle's RTIs', the embedded RTI's) equal the float64
+    run's."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    pr64 = family_problem(family, cfg, 2, "cpu", torch.float64)
+    runs = {}
+    for key, dev, dtype in (("card", DEVICE, torch.float32),
+                            ("cpu32", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        def conv(a):
+            return (a.to(device=dev, dtype=dtype) if a.is_floating_point()
+                    else a.to(dev))
+        st, stats, (st2, solved, gres, _) = family_run(cfg,
+                                                       tree_map(conv, pr64))
+        runs[key] = dict(
+            positions=torch.stack([st.traj.x_man[..., :3],
+                                   st2.traj.x_man[..., :3]]).double().cpu(),
+            costs=torch.stack([stats.cost, gres.rti_stats.cost]
+                              ).double().cpu(),
+            solved=torch.cat([stats.solved[None], solved,
+                              gres.rti_stats.solved[None]]).cpu())
+    r64 = runs["cpu64"]
+    check(torch.equal(runs["card"]["solved"], r64["solved"]),
+          f"{family} card vs CPU: solved flags {runs['card']['solved']} != "
+          f"float64's {r64['solved']}")
+    d_card, d32 = (float(torch.amax(torch.abs(runs[k]["positions"]
+                                              - r64["positions"])))
+                   for k in ("card", "cpu32"))
+    tol = max(10.0 * d32, TOL_BASE)
+    check(d_card <= tol, f"{family} card vs CPU, planned positions: "
+          f"{d_card:.3e} > {tol:.3e}")
+    rel, rel32 = (float(torch.amax(torch.abs(runs[k]["costs"] - r64["costs"])
+                                   / torch.clamp_min(r64["costs"].abs(), 1.0)))
+                  for k in ("card", "cpu32"))
+    tol_c = max(10.0 * rel32, TOL_OBJ)
+    check(rel <= tol_c, f"{family} card vs CPU, cost rel {rel:.3e} > "
+          f"{tol_c:.3e}")
+    return (f"planned positions max|card - cpu64| {d_card:.3e} m (cpu32 "
+            f"{d32:.3e}; limit {tol:.3e}); costs rel {rel:.3e} (cpu32 "
+            f"{rel32:.3e}; limit {tol_c:.3e}); costs card "
+            f"{runs['card']['costs'].tolist()} cpu64 "
+            f"{r64['costs'].tolist()}; solved flags equal")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -1739,6 +1979,7 @@ def main() -> int:
     loop_launches, loop_rows = phase_closed_loop(card)
     cent_launches, cent_rows, schur_rows, cent_ms = phase_centroidal(card)
     admm_ms = phase_admm(cfg)
+    fam_launches, fam_rows, fam_ms = phase_families(card)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
     # chol_inverse from the centroidal RTI (phase 9); every path's counts are
@@ -1753,15 +1994,18 @@ def main() -> int:
                                    "gj_cold_start": gj_launches.get(name, 0),
                                    "closed_loop": loop_launches[name],
                                    "centroidal_rti": cent_launches[name],
-                                   "admm_block": 0}
+                                   "admm_block": 0,
+                                   **{f"{fam}_cycle": n[name]
+                                      for fam, n in fam_launches.items()}}
         row["closed_loop_checks"] = [r for r in loop_rows
                                      if r["kernel"] == name]
         row["centroidal_checks"] = [r for r in cent_rows
                                     if r["kernel"] == name]
+        row["families_checks"] = [r for r in fam_rows if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
     print(f"[paths] centroidal step ms {json.dumps(cent_ms)}; ADMM block ms "
-          f"{json.dumps(admm_ms)}")
+          f"{json.dumps(admm_ms)}; families {json.dumps(fam_ms)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

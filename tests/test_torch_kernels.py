@@ -119,14 +119,23 @@ def _jax_sweep(st, do_ns, done, it, bmerit, best, reg, tol):
                        refine_steps=1, ns_steps=2, interpret=True)
 
 
-@pytest.mark.parametrize("do_ns", [False, True])
-def test_ipm_iter_reference_matches_pallas_interpret(do_ns):
+# the Adam biped's lane QPs (configs/adam_march.yaml, N = 20): n = 116,
+# m = 616, p = 28, padded by pdip to [128, 640]
+ADAM_LANES = dict(n=116, m=616, p=28, n_p=128, m_p=640)
+
+
+@pytest.mark.parametrize("do_ns,shape", [
+    pytest.param(False, {}, id="False"), pytest.param(True, {}, id="True"),
+    pytest.param(False, ADAM_LANES, id="adam-n128_m640_p28-False"),
+    pytest.param(True, ADAM_LANES, id="adam-n128_m640_p28-True")])
+def test_ipm_iter_reference_matches_pallas_interpret(do_ns, shape):
     """One sweep of ipm_iter_reference against one interpret-mode Pallas
-    sweep on the same padded state (float32, n = m = 128, p = 12): rtol
-    1e-4 / atol 1e-5, float32 rounding of the same math in another order
-    (the Newton-Schulz products amplify it most)."""
+    sweep on the same padded state (float32, n = m = 128, p = 12; and at
+    the Adam biped's lane shape [128, 640, p = 28]): rtol 1e-4 / atol 1e-5,
+    float32 rounding of the same math in another order (the Newton-Schulz
+    products amplify it most)."""
     reg, tol = 50 * float(np.finfo(np.float32).eps), 1e-7
-    states = [_sweep_state(3), _sweep_state(4)]
+    states = [_sweep_state(3, **shape), _sweep_state(4, **shape)]
     # problem 1 enters with a finite best merit and done set
     bmerits = [np.inf, 5.0]
     dones = [False, True]
@@ -703,13 +712,17 @@ def test_ipm_iter_source_on_host_handed_M_is_bitwise_the_same(host_card,
     dict(n=200, m=300, p=16, n_p=256, m_p=384),
     dict(n=300, m=200, p=7, n_p=384, m_p=256),
     dict(n=60, m=100, p=20, n_p=128, m_p=128),
-], ids=["n256_m384_p16", "n384_m256_p7", "n128_m128_p20"])
+    dict(n=116, m=616, p=28, n_p=128, m_p=640),
+], ids=["n256_m384_p16", "n384_m256_p7", "n128_m128_p20", "n128_m640_p28"])
 def test_ipm_iter_source_on_host_wide_shapes(host_card, shape):
     """The chain at the main path's n = 256 (a lane covers two 16-byte
     pieces of a row of G) and at n = 384 (the residual pass takes the
     columns in two rounds), p not a multiple of 4 and p above 16 (the wider
-    instance of the A Mi product), with the Newton-Schulz refresh: rtol 1e-4 of each field's max, float32 rounding of the same
-    math in another order."""
+    instance of the A Mi product), and at the Adam biped's lane shape
+    (n = 128: half a column block of the row sums, one 128-wide tile of M
+    a problem; p = 28, just under the resident limit of 32), with the
+    Newton-Schulz refresh: rtol 1e-4 of each field's max, float32 rounding
+    of the same math in another order."""
     T = _sweep_batch((16, 17), **shape)
     ref = _run_sweep(kernels.ipm_iter_reference, T, True)
     got = _run_sweep(kernels.ipm_iter, T, True)

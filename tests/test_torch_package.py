@@ -41,6 +41,10 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.sim.engine",
     "bilevel_gait_gen_tpu_torch.mpc.centroidal",
     "bilevel_gait_gen_tpu_torch.ops.admm",
+    "bilevel_gait_gen_tpu_torch.models.adam",
+    "bilevel_gait_gen_tpu_torch.models.mini_cheetah",
+    "bilevel_gait_gen_tpu_torch.models.urdf",
+    "bilevel_gait_gen_tpu_torch.utils.config",
     "chip_smoke",
     "bench_torch",
 ])
