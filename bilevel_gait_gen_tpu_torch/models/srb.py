@@ -21,6 +21,7 @@ from bilevel_gait_gen_tpu_torch.utils.consts import const
 
 
 def gravity(dtype: torch.dtype, device=None) -> torch.Tensor:
+    """(0, 0, -9.81); ``device`` None means the GPU."""
     return const((0.0, 0.0, -9.81), dtype, device)
 
 

@@ -42,7 +42,8 @@ class CondensedQP:
 
 def friction_pyramid(mu: float, *, dtype: torch.dtype,
                      device=None) -> torch.Tensor:
-    """4x3 pyramid rows F f <= 0: +-fx - mu fz, +-fy - mu fz."""
+    """4x3 pyramid rows F f <= 0: +-fx - mu fz, +-fy - mu fz; ``device``
+    None means the GPU."""
     return const(((1.0, 0.0, -mu), (-1.0, 0.0, -mu),
                   (0.0, 1.0, -mu), (0.0, -1.0, -mu)), dtype, device)
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 
 _EPS = 1e-12
@@ -34,6 +35,9 @@ def conjugate(q: torch.Tensor) -> torch.Tensor:
 
 
 def identity(*, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """The unit quaternion (x, y, z, w) = (0, 0, 0, 1); ``device`` None
+    means the GPU."""
+    device = resolve_device(device)
     return torch.cat([torch.zeros(3, dtype=dtype, device=device),
                       torch.ones(1, dtype=dtype, device=device)])
 

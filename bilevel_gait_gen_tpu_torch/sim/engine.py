@@ -154,7 +154,7 @@ def mpc_update(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
     """The MPC update of a period's first tick at time t [B] from the
     loop's state, the measured feet [B, E, 3] and the latched contact
     mc [B, E]: an RTI, or the gait update (which embeds the RTI).  Returns
-    (state, cost [B], solved [B], trust [B])."""
+    (state, the RTI's SolveStats (each [B]), trust [B])."""
     x_srb = mpc_controller.reconstruct_srb_state(model, params, ls.q, ls.v)
     st = ls.st
     if contact_sync:
@@ -166,10 +166,10 @@ def mpc_update(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
     if gait:
         res = bilevel_mod.gait_opt_update(cfg, params, st, x_srb, t, feet,
                                           x_des_tan, trust=ls.trust)
-        return res.state, res.rti_stats.cost, res.rti_stats.solved, res.trust
+        return res.state, res.rti_stats, res.trust
     st2, stats = solver_mod.solve_step(cfg, params, st, x_srb, t, feet,
                                        x_des_tan)
-    return st2, stats.cost, stats.solved, ls.trust
+    return st2, stats, ls.trust
 
 
 def latch_contact(sim: SimConfig, feet: torch.Tensor,
@@ -214,9 +214,10 @@ def period(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
         feet = rbd.ee_positions(model, q)
         mc = latch_contact(sim, feet, mc)
         if j == 0:
-            st, cost, solved, trust = mpc_update(
+            st, stats, trust = mpc_update(
                 model, params, cfg, ls, t, x_des_tan, feet, mc, gait=gait,
                 contact_sync=contact_sync)
+            cost, solved = stats.cost, stats.solved
             t0 = t
         else:
             cost = torch.full((B,), float("nan"), dtype=dtype,

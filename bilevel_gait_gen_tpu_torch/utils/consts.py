@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from bilevel_gait_gen_tpu_torch import resolve_device
+
 _BUILT: dict = {}
 
 
@@ -33,9 +35,11 @@ def filled(value, shape, dtype: torch.dtype, device) -> torch.Tensor:
 def const(value, dtype: torch.dtype, device) -> torch.Tensor:
     """``torch.tensor(value, dtype=dtype, device=device)``, built at the
     first call and shared after it.  ``value`` is a number or a nested
-    list or tuple of numbers (a configuration field as it is)."""
-    key = (_frozen(value), dtype, torch.device(device))
+    list or tuple of numbers (a configuration field as it is); ``device``
+    None means the GPU (:func:`~bilevel_gait_gen_tpu_torch.resolve_device`).
+    """
+    key = (_frozen(value), dtype, resolve_device(device))
     t = _BUILT.get(key)
     if t is None:
-        t = _BUILT[key] = torch.tensor(key[0], dtype=dtype, device=device)
+        t = _BUILT[key] = torch.tensor(key[0], dtype=dtype, device=key[2])
     return t

@@ -75,7 +75,19 @@ it on the way:
    the Mini Cheetah under bench.py's configuration: the cold start and one
    cadence cycle, eagerly and as a graph replay bit for bit, solved_frac
    >= 0.95, launches counted (no Schur stage at p <= 32); the kernels held
-   to their plain versions at Adam's shapes and timed; card against CPU.
+   to their plain versions at Adam's shapes and timed; card against CPU;
+12. the hardware loop: scripts/hardware_sim_demo.py --trot at batch 1,
+   float32: ``control.hardware.HardwareRobot`` in ``Mode.MPC`` over a
+   loopback ``runtime.UdpEndpoint`` pair, its control_fn the port's MPC
+   (an RTI every 50 ticks, the gait update in place of every second, the
+   1 kHz ``control_action_full``; each a CUDA graph), the robot side the
+   port's penalty-ground engine with the motor PD law, 250 ticks in
+   lockstep: finite commands, no fall-back to Stand, upright; ``gtwg`` and
+   ``ipm_iter`` launched by the gait update and held to their plain
+   versions on its calls; the stats ring, the LowLevelLog, a checkpoint and
+   a ``torch.profiler`` trace checked; card against CPU on the first MPC
+   period's commands; a free-running ``HardwareRobot.run`` at 1 kHz
+   (ticks, overruns, latency printed).
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -1959,6 +1971,645 @@ def family_card_vs_cpu(family: str, cfg) -> str:
             f"{r64['costs'].tolist()}; solved flags equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the hardware loop
+# ---------------------------------------------------------------------------
+
+HW_TICKS = 250          # 5 MPC updates (ticks 0, 50, ..., 200); the gait
+                        # update at the third and the fifth
+HW_CONTROL_HZ = 1000.0  # scripts/hardware_sim_demo.py's control rate
+HW_TORQUE_LIMIT = 33.5  # N m, the demo's torque limit and motor clip
+HW_GAIT_EVERY = 2       # the gait update in place of every 2nd RTI
+HW_MOCAP_EVERY = 4      # the mocap update every 4th tick (the demo's 240 Hz)
+HW_CMP_TICKS = 50       # card against CPU: the first MPC period's commands
+HW_FREE_S = 0.5         # the free-running HardwareRobot.run
+HW_LOG_DECIMATION = 10
+TOL_CMD = 0.01          # floor of the card-vs-CPU command distance
+
+
+def hardware_configs():
+    """scripts/hardware_sim_demo.py's configuration: (MPCConfig,
+    WBQPConfig, SimConfig); the robot side's physics is the port's
+    penalty-ground engine (MuJoCo in the demo)."""
+    from bilevel_gait_gen_tpu_torch.control.wbqp import WBQPConfig
+    from bilevel_gait_gen_tpu_torch.sim.engine import SimConfig
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+    cfg = MPCConfig(ipm_iters=18, double_support=0.1, force_carrier=True,
+                    carrier_ramp=0.1).validate()
+    return cfg, WBQPConfig(), SimConfig()
+
+
+def hardware_start(cfg, sim, device, dtype):
+    """The demo's start for one robot (:62-80): the settled stand, the trot,
+    a cold solver state and ``create_initial_run``.  Returns (model, params,
+    state [1], q0 [nq], x_des [1, 12])."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.control import mpc_controller
+    from bilevel_gait_gen_tpu_torch.models import a1, rbd, srb
+    from bilevel_gait_gen_tpu_torch.mpc import gait, solver
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    model = a1.make_a1(device=device)
+    stand = torch.tensor(a1.stand_config(), dtype=dtype, device=device)
+    q0 = engine.settled_stand(model, sim, stand)
+    params = srb.make_srb_params(model, q0)
+    x0 = mpc_controller.reconstruct_srb_state(model, params, q0,
+                                              torch.zeros_like(q0[1:]))
+    feet0 = rbd.ee_positions(model, q0)
+    traj = default_trajectory(cfg, gait.make_trot(cfg, dtype=dtype,
+                                                  device=device),
+                              x0[None], feet0[None, :, :2])
+    st = solver.SolverState(traj=traj, ee_box=torch.tensor(
+        [cfg.ee_box_size], dtype=dtype, device=device))
+    x_des = srb.manifold_to_tangent(x0)[None]
+    st, stats = solver.create_initial_run(cfg, params, st, x0[None],
+                                          feet0[None], x_des)
+    check(bool(stats.solved.all()), "the hardware loop's initial run solved")
+    return model, params, st, q0, x_des
+
+
+class HardwareMPC:
+    """The control_fn of scripts/hardware_sim_demo.py (:96-129) from the
+    port, for ``control.hardware.HardwareRobot``: the full configuration
+    from the mocap base position, the IMU quaternion and the joints on the
+    wire; an MPC update every ``cfg.dt`` (``sim/engine.mpc_update`` with
+    the schedule sync on: the gait update in place of every
+    ``gait_opt_every``-th RTI, as ``engine.closed_loop`` does), and on every
+    tick ``control_action_full``.  Every update records its row in a
+    ``utils/stats`` ring on the device; the ring's time column holds the
+    wall time of the update before (a graph cannot time itself).
+
+    On the card each of the RTI update, the gait update and the control
+    tick is one ``utils/graphs.Graphed`` at batch 1, captured at its first
+    use and held to that use's eager call bit for bit.  Exceptions raised
+    in the callback are kept in :attr:`errors` before HardwareRobot's
+    fall-back to Stand sees them."""
+
+    def __init__(self, model, params, cfg, wb, x_des, *, gait_opt_every,
+                 ring_capacity=64):
+        import torch
+        self.model, self.params, self.cfg, self.wb = model, params, cfg, wb
+        self.x_des, self.gait_opt_every = x_des, gait_opt_every
+        self.dtype, self.device = x_des.dtype, x_des.device
+        self.graphed = self.device.type == "cuda"
+        self.ring_capacity = ring_capacity
+        self.fns = {"rti": self._update_fn(False),
+                    "gait": self._update_fn(True), "tick": self._tick}
+        self.graphs, self.compared, self.eager_ms = {}, {}, {}
+        self.first_args = {}
+        self.errors = []
+        self.zero = torch.zeros(1, dtype=self.dtype, device=self.device)
+
+    def reset(self, state, q_full, v_full, contact):
+        """A fresh run from ``state``: no update made yet."""
+        import torch
+        from bilevel_gait_gen_tpu_torch.utils import stats as stats_mod
+        self.st = state
+        self.trust = torch.full((1,), self.cfg.trust_region,
+                                dtype=self.dtype, device=self.device)
+        self.t0, self.t0_t = 0.0, self.zero
+        self.n_mpc, self.fails = 0, 0
+        self.q_full, self.v_full, self.contact = q_full, v_full, contact
+        self.ring = stats_mod.make_ring(self.ring_capacity, self.dtype,
+                                        self.device)
+        self.updates = []          # (kind, wall ms, stats row) an update
+        self.last_ms = 0.0
+
+    def _update_fn(self, gait: bool):
+        from bilevel_gait_gen_tpu_torch.models import rbd
+        from bilevel_gait_gen_tpu_torch.sim import engine
+        from bilevel_gait_gen_tpu_torch.utils import stats as stats_mod
+
+        def update(st, trust, q, v, t, mc, ring, idx, time_ms):
+            feet = rbd.ee_positions(self.model, q)
+            # mpc_update reads the loop state's q, v, st and trust
+            ls = engine.LoopState(q=q, v=v, st=st, t0=t, mc=mc, trust=trust,
+                                  tick=idx)
+            st2, stats, trust2 = engine.mpc_update(
+                self.model, self.params, self.cfg, ls, t, self.x_des, feet,
+                mc, gait=gait, contact_sync=True)
+            return st2, stats, trust2, stats_mod.record(ring, idx, time_ms,
+                                                        stats)
+        update.__name__ = "gait_update" if gait else "rti_update"
+        return update
+
+    def _tick(self, traj, q, v, t, t0, mc):
+        from bilevel_gait_gen_tpu_torch.control import mpc_controller
+        return mpc_controller.control_action_full(
+            self.model, self.params, self.cfg, self.wb, traj, q, v, t, t0,
+            mc)
+
+    def run(self, name, *args):
+        """``fns[name](*args)``: eagerly on the CPU; on the card through its
+        graph, captured at the first call and held there to the eager
+        call."""
+        import torch
+        from bilevel_gait_gen_tpu_torch.utils.graphs import (Graphed,
+                                                              tree_map)
+        fn = self.fns[name]
+        if not self.graphed:
+            return fn(*args)
+        g = self.graphs.get(name)
+        if g is not None:
+            return g(*args)
+        self.first_args[name] = tree_map(torch.clone, args)
+        eager, self.eager_ms[name] = timed_ms(fn, *args)
+        g = self.graphs[name] = Graphed(fn, *args)
+        out = g(*args)
+        self.compared[name] = check_bitwise(out, eager, f"graphed {name}")
+        return out
+
+    def __call__(self, q_j, dq, quat, gyro, vcom, t, mode):
+        try:
+            return self._control(q_j, dq, quat, gyro, vcom, t)
+        except Exception as exc:
+            self.errors.append(exc)
+            raise
+
+    def _control(self, q_j, dq, quat, gyro, vcom, t):
+        import torch
+        from bilevel_gait_gen_tpu_torch.sim import engine
+        dev, dtype = self.device, self.dtype
+        qj = torch.tensor(np.concatenate([self.q_full[0:3], quat, q_j]),
+                          dtype=dtype, device=dev)[None]
+        vj = torch.tensor(np.concatenate([vcom, gyro, dq]), dtype=dtype,
+                          device=dev)[None]
+        tt = torch.tensor([t], dtype=dtype, device=dev)
+        mc = torch.tensor(np.asarray(self.contact, bool), device=dev)[None]
+        if self.n_mpc == 0 or t >= self.t0 + self.cfg.dt:
+            gait = engine.is_gait_period(self.n_mpc, self.gait_opt_every)
+            idx = torch.tensor(self.n_mpc, dtype=torch.int32, device=dev)
+            ms_in = torch.tensor(self.last_ms, dtype=dtype, device=dev)
+            t_up = time.perf_counter()
+            st, stats, trust, ring = self.run(
+                "gait" if gait else "rti", self.st, self.trust, qj, vj, tt,
+                mc, self.ring, idx, ms_in)
+            row = torch.stack([stats.defect_l1, stats.step_norm,
+                               stats.alpha, stats.cost, stats.merit,
+                               stats.qp_gap, stats.qp_pri, stats.qp_dua,
+                               stats.solved.to(dtype)], -1)[0]
+            row = row.cpu().numpy()          # waits for the update
+            self.last_ms = (time.perf_counter() - t_up) * 1e3
+            self.updates.append(("gait" if gait else "rti", self.last_ms,
+                                 row))
+            self.st, self.trust, self.ring = st, trust, ring
+            self.t0, self.t0_t = t, tt
+            self.n_mpc += 1
+            self.fails += int(row[-1] == 0)
+        tau, q_des, dq_des, contact = self.run("tick", self.st.traj, qj, vj,
+                                               tt, self.t0_t, mc)
+        return (tau[0].cpu().numpy(), q_des[0].cpu().numpy(),
+                dq_des[0].cpu().numpy(), contact[0].cpu().numpy())
+
+    def close(self):
+        for g in self.graphs.values():
+            g.close()
+        self.graphs = {}
+
+
+class PenaltyGroundRobot:
+    """The demo's robot MCU (:131-166) on the port's penalty-ground engine
+    in place of MuJoCo: it streams state packets, takes the command packet,
+    applies the motor PD law tau = tau_ff + kp (q_des - q) + kd (dq_des -
+    dq) clipped to the torque limit, and steps ``sim.substeps`` physics
+    steps over one control period; the measured contact is the engine's
+    hysteresis latch.  On the card the physics of a tick is one graph."""
+
+    def __init__(self, model, sim, q0, *, control_dt):
+        import torch
+        from bilevel_gait_gen_tpu_torch.models import rbd
+        self.model, self.sim, self.control_dt = model, sim, control_dt
+        self.q = q0[None].clone()
+        self.v = torch.zeros(1, model.nv, dtype=q0.dtype, device=q0.device)
+        self.mc = rbd.ee_positions(model, self.q)[..., 2] < (
+            sim.foot_radius + sim.contact_enter_margin)
+        self.graph = None
+        self._read()
+
+    def _physics(self, q, v, tau, mc):
+        from bilevel_gait_gen_tpu_torch.models import rbd
+        from bilevel_gait_gen_tpu_torch.sim import engine
+        for _ in range(self.sim.substeps):
+            q, v = engine.physics_step(self.model, self.sim, q, v, tau,
+                                       self.control_dt / self.sim.substeps)
+        return q, v, engine.latch_contact(self.sim,
+                                          rbd.ee_positions(self.model, q), mc)
+
+    def _read(self):
+        self.q_np = self.q[0].double().cpu().numpy()
+        self.v_np = self.v[0].double().cpu().numpy()
+        self.mc_np = self.mc[0].cpu().numpy()
+
+    def state_packet(self, seq: int) -> bytes:
+        from bilevel_gait_gen_tpu_torch.control import hardware as hw
+        q, v = self.q_np, self.v_np
+        return hw.pack_state(seq, q[7:], v[6:], np.zeros(len(q) - 7),
+                             q[3:7], v[3:6], np.zeros(3))
+
+    def apply(self, cmd: bytes) -> np.ndarray:
+        """The motor PD law on a command packet, then one control period of
+        physics; returns the motor torques."""
+        import torch
+        from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
+        nj = len(self.q_np) - 7
+        q_des, dq_des, kp, kd, tau_ff = np.frombuffer(
+            cmd[8:], np.float32).reshape(nj, 5).T
+        tau = np.clip(tau_ff + kp * (q_des - self.q_np[7:])
+                      + kd * (dq_des - self.v_np[6:]),
+                      -HW_TORQUE_LIMIT, HW_TORQUE_LIMIT)
+        tau_t = torch.tensor(tau, dtype=self.q.dtype,
+                             device=self.q.device)[None]
+        if self.q.is_cuda:
+            if self.graph is None:
+                eager = self._physics(self.q, self.v, tau_t, self.mc)
+                self.graph = Graphed(self._physics, self.q, self.v, tau_t,
+                                     self.mc)
+                check_bitwise(self.graph(self.q, self.v, tau_t, self.mc),
+                              eager, "graphed robot physics")
+            else:
+                self.graph(self.q, self.v, tau_t, self.mc)
+            self.q, self.v, self.mc = (t.clone() for t in self.graph.out)
+        else:
+            self.q, self.v, self.mc = self._physics(self.q, self.v, tau_t,
+                                                    self.mc)
+        self._read()
+        return tau
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
+
+
+class TimedEndpoint:
+    """A UDP endpoint whose recv and send are timed as stages."""
+
+    def __init__(self, ep, timers):
+        self.ep, self.timers = ep, timers
+
+    def recv(self, maxlen: int = 2048):
+        with self.timers.stage("recv"):
+            return self.ep.recv(maxlen)
+
+    def send(self, data: bytes) -> int:
+        with self.timers.stage("send"):
+            return self.ep.send(data)
+
+
+def poll(fn, what: str, deadline_s: float = 2.0):
+    """``fn()`` again until it gives something other than None or False,
+    at most ``deadline_s`` seconds."""
+    t_end = time.perf_counter() + deadline_s
+    while True:
+        got = fn()
+        if got is not None and got is not False:
+            return got
+        check(time.perf_counter() < t_end, f"{what} within {deadline_s} s")
+        time.sleep(1e-5)
+
+
+def hardware_loop(ctrl, model, sim, q0, state, *, n_ticks, log_path=None,
+                  timers=None):
+    """The demo's lockstep loop (:131-166) over a loopback UdpEndpoint pair
+    on ports the OS chose: each tick the robot streams its state packet
+    (a mocap update every HW_MOCAP_EVERY-th tick), the controller's
+    ``HardwareRobot.step_once`` answers with a command, the robot applies
+    it and steps its physics.  Returns (commands [n_ticks, nj, 5] as sent,
+    the robot's final q [nq], ms of each tick's step_once, whether each
+    tick made an MPC update)."""
+    from bilevel_gait_gen_tpu_torch import runtime
+    from bilevel_gait_gen_tpu_torch.control import hardware as hw
+    from bilevel_gait_gen_tpu_torch.utils.timing import StageTimers
+    timers = timers or StageTimers()
+    dt = 1.0 / HW_CONTROL_HZ
+    robot = PenaltyGroundRobot(model, sim, q0, control_dt=dt)
+    ctrl_ep, robot_ep = runtime.loopback_pair()
+    nj = model.num_joints
+    bot = hw.HardwareRobot(
+        nj, TimedEndpoint(ctrl_ep, timers), ctrl,
+        est_cfg=hw.EstimatorConfig(control_hz=HW_CONTROL_HZ),
+        torque_limit=HW_TORQUE_LIMIT, stand_config=robot.q_np[7:].copy(),
+        log_path=log_path, log_decimation=HW_LOG_DECIMATION)
+    bot.set_mode(hw.Mode.MPC)
+    joint_velocities = bot.estimator.joint_velocities
+
+    def estimate(dq_raw):
+        with timers.stage("estimate"):
+            return joint_velocities(dq_raw)
+
+    bot.estimator.joint_velocities = estimate
+    control_fn = bot.control_fn
+
+    def control(*args):
+        with timers.stage("control"):
+            return control_fn(*args)
+
+    bot.control_fn = control
+    ctrl.reset(state, robot.q_np, robot.v_np, robot.mc_np)
+    cmds, tick_ms, updated = [], [], []
+    try:
+        for k in range(n_ticks):
+            t = k * dt
+            ctrl.q_full, ctrl.v_full = robot.q_np, robot.v_np
+            ctrl.contact = robot.mc_np
+            if k % HW_MOCAP_EVERY == 0:
+                bot.estimator.mocap_update(robot.q_np[0:3].copy(), t)
+            robot_ep.send(robot.state_packet(k))
+            n_mpc, t_tick = ctrl.n_mpc, time.perf_counter()
+            poll(lambda: bot.step_once(t), f"tick {k}: the state packet")
+            tick_ms.append((time.perf_counter() - t_tick) * 1e3)
+            updated.append(ctrl.n_mpc != n_mpc)
+            check(bot.mode == hw.Mode.MPC, f"tick {k}: HardwareRobot fell "
+                  f"back to {bot.mode} ({ctrl.errors[-1:]!r})")
+            cmd = poll(lambda: robot_ep.recv(4096),
+                       f"tick {k}: the command packet")
+            cmds.append(np.frombuffer(cmd[8:], np.float32).reshape(nj, 5))
+            robot.apply(cmd)
+        q_end = robot.q_np.copy()
+    finally:
+        bot.stop()
+        robot.close()
+    return np.stack(cmds), q_end, np.asarray(tick_ms), np.asarray(updated)
+
+
+def free_run(ctrl, model, sim, q0, state):
+    """``HardwareRobot.run(HW_FREE_S, rate_hz=HW_CONTROL_HZ)`` in a thread
+    while a robot thread streams held state packets (every 1 ms) and
+    drains the commands: (ticks, overruns, commands received, step_once
+    ms per tick)."""
+    import threading
+    from bilevel_gait_gen_tpu_torch import runtime
+    from bilevel_gait_gen_tpu_torch.control import hardware as hw
+    robot = PenaltyGroundRobot(model, sim, q0, control_dt=1.0 / HW_CONTROL_HZ)
+    ctrl_ep, robot_ep = runtime.loopback_pair()
+    bot = hw.HardwareRobot(
+        model.num_joints, ctrl_ep, ctrl,
+        est_cfg=hw.EstimatorConfig(control_hz=HW_CONTROL_HZ),
+        torque_limit=HW_TORQUE_LIMIT, stand_config=robot.q_np[7:].copy())
+    bot.set_mode(hw.Mode.MPC)
+    ctrl.reset(state, robot.q_np, robot.v_np, robot.mc_np)
+    step_once, lat = bot.step_once, []
+
+    def timed_step(t):
+        t_in = time.perf_counter()
+        ok = step_once(t)
+        if ok:
+            lat.append((time.perf_counter() - t_in) * 1e3)
+        return ok
+
+    bot.step_once = timed_step
+    stop, received = threading.Event(), [0]
+    pkt = robot.state_packet(0)
+
+    def stream():
+        while not stop.is_set():
+            robot_ep.send(pkt)
+            while robot_ep.recv(4096) is not None:
+                received[0] += 1
+            time.sleep(1e-3)
+
+    streamer = threading.Thread(target=stream)
+    runner = threading.Thread(target=bot.run, args=(HW_FREE_S,),
+                              kwargs={"rate_hz": HW_CONTROL_HZ})
+    streamer.start()
+    try:
+        runner.start()
+        runner.join(timeout=120.0)
+        check(not runner.is_alive(), "HardwareRobot.run ended")
+    finally:
+        stop.set()
+        streamer.join(timeout=10.0)
+        bot.stop()
+    check(not streamer.is_alive(), "the robot thread ended")
+    check(bot.mode == hw.Mode.MPC, f"free run: HardwareRobot fell back to "
+          f"{bot.mode} ({ctrl.errors[-1:]!r})")
+    return bot.ticks, bot.overruns, received[0], np.asarray(lat)
+
+
+def hardware_card_vs_cpu(cfg, wb, sim, start64, card_cmds) -> str:
+    """The first HW_CMP_TICKS commands of the card's run (float32) against
+    the same lockstep loop from the same float64 start on the CPU, in
+    float64 and in float32: each command field held to float64 within 10x
+    the CPU float32 run's own distance (at least TOL_CMD; kp and kd are
+    exact)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.models import a1
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    _, params, st, q0, x_des = start64
+    runs = {}
+    for key, dtype in (("cpu64", torch.float64), ("cpu32", torch.float32)):
+        def conv(a):
+            return a.to(dtype) if a.is_floating_point() else a
+        model = a1.make_a1(device="cpu")
+        ctrl = HardwareMPC(model, tree_map(conv, params), cfg, wb,
+                           conv(x_des), gait_opt_every=HW_GAIT_EVERY)
+        runs[key] = hardware_loop(ctrl, model, sim, conv(q0),
+                                  tree_map(conv, st),
+                                  n_ticks=HW_CMP_TICKS)[0]
+    runs["card"] = card_cmds[:HW_CMP_TICKS]
+    parts = []
+    for j, name in enumerate(("q_des", "dq_des", "kp", "kd", "tau_ff")):
+        ref = runs["cpu64"][..., j].astype(np.float64)
+        d_card = float(np.abs(runs["card"][..., j] - ref).max())
+        d32 = float(np.abs(runs["cpu32"][..., j] - ref).max())
+        tol = max(10.0 * d32, TOL_CMD)
+        check(d_card <= tol, f"card vs CPU, the commands' {name}: "
+              f"{d_card:.3e} > {tol:.3e}")
+        parts.append(f"{name} {d_card:.3e} (cpu32 {d32:.3e}; limit "
+                     f"{tol:.3e})")
+    return "max|card - cpu64| over " + str(HW_CMP_TICKS) + " ticks: " + \
+        "; ".join(parts)
+
+
+def phase_hardware(card: str):
+    """Phase 12: the hardware stack with the port's MPC on the card, the
+    counterpart of scripts/hardware_sim_demo.py --trot at batch 1, float32,
+    A1: ``control.hardware.HardwareRobot`` (the estimator, the gain
+    schedule, the torque check, the wire format) in ``Mode.MPC`` over a
+    loopback ``runtime.UdpEndpoint`` pair, its control_fn
+    :class:`HardwareMPC`, the robot side :class:`PenaltyGroundRobot`.
+
+    1. HW_TICKS ticks in lockstep, the kernels' counts set to 0 before and
+       read after: every command finite, no fall-back to Stand, the base
+       above 0.55 of its start height at the end; the gait update's graph
+       launched ``gtwg`` and ``ipm_iter`` at its capture and none of
+       ``rgemm``, ``chol_inverse``, ``gj_inverse``; every graph's first
+       replay equal to its eager call bit for bit; the graphed control
+       tick's device busy share under ``torch.profiler``.
+    2. The kernels held to their plain versions on the gait update's own
+       calls (``ops/kernel_checks``).
+    3. The host utilities on the card: the stats ring's rows against the
+       stats read back, its table printed; the HardwareRobot's LowLevelLog
+       read back against the commands sent; the final SolverState saved
+       and loaded back bit for bit; ``timing.device_trace`` around one
+       gait update names ``gtwg_kernel`` and ``ipm_iter_kernel``.
+    4. Card against CPU: the first MPC period's commands.
+    5. A free-running ``HardwareRobot.run`` (printed, not gated but for the
+       fall-back): ticks against HW_FREE_S x HW_CONTROL_HZ, overruns, tick
+       latency.
+    Returns (launches of step 1, kernel rows of step 2)."""
+    import json as json_mod
+    import shutil
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.utils import (checkpoint, lowlevel_log,
+                                                  timing)
+    from bilevel_gait_gen_tpu_torch.utils import stats as stats_mod
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    from bilevel_gait_gen_tpu_torch.models import a1
+    t_phase = time.perf_counter()
+    cfg, wb, sim = hardware_configs()
+    out_dir = REPO / "smoke_out" / "hardware_loop"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    start64, start_ms = timed_ms(hardware_start, cfg, sim, "cpu",
+                                 torch.float64)
+    _, params, st, q0, x_des = start64
+
+    def conv(a):
+        return (a.to(device=DEVICE, dtype=torch.float32)
+                if a.is_floating_point() else a.to(DEVICE))
+
+    model = a1.make_a1(device=DEVICE)
+    params, st, q0, x_des = (tree_map(conv, a) for a in (params, st, q0,
+                                                           x_des))
+    z0 = float(q0[2])
+    ctrl = HardwareMPC(model, params, cfg, wb, x_des,
+                       gait_opt_every=HW_GAIT_EVERY)
+
+    # 1. the loop
+    timers = timing.StageTimers()
+    kernels.reset_launch_counts()
+    t_loop = time.perf_counter()
+    cmds, q_end, tick_ms, updated = hardware_loop(
+        ctrl, model, sim, q0, st, n_ticks=HW_TICKS,
+        log_path=str(out_dir / "lowlevel.bggl"), timers=timers)
+    loop_s = time.perf_counter() - t_loop
+    launches = kernels.launch_counts()
+    check(not ctrl.errors, f"the controller raised {ctrl.errors!r}")
+    check(bool(np.isfinite(cmds).all()), "every command finite")
+    check(q_end[2] > 0.55 * z0, f"upright at the end: z {q_end[2]:.4f} m "
+          f"against 0.55 x {z0:.4f}")
+    kinds = [u[0] for u in ctrl.updates]
+    check(kinds.count("gait") >= 1, f"a gait update ran: {kinds}")
+    cap = ctrl.graphs["gait"].captured_launches
+    for name in ("gtwg", "ipm_iter"):
+        check(cap[name] > 0, f"{name} launched at the gait update's "
+              f"capture: {cap}")
+    for name in ("rgemm", "chol_inverse", "gj_inverse"):
+        check(cap[name] == 0 and launches[name] == 0,
+              f"no {name} on the hardware loop: {cap}, {launches}")
+    check(all(v == 0 for v in ctrl.graphs["rti"].captured_launches.values()),
+          f"no kernel in the RTI update: "
+          f"{ctrl.graphs['rti'].captured_launches}")
+    busy = kc.profile_call(ctrl.graphs["tick"], "hardware loop control tick "
+                           "(graphed)")
+    final_state = tree_map(torch.clone, ctrl.st)
+    ring = tree_map(torch.clone, ctrl.ring)
+    updates = list(ctrl.updates)
+
+    # 2. the kernels on the gait update's own calls
+    gait_args = ctrl.first_args["gait"]
+    calls = kc.record_kernel_calls(lambda: ctrl.fns["gait"](*gait_args))
+    krows = kc.check_recorded_calls(calls, "hardware loop")
+    for name in ("gtwg", "ipm_iter"):
+        check(any(r["kernel"] == name for r in krows),
+              f"{name} checked on the hardware loop's calls")
+
+    # 3. the host utilities
+    table = stats_mod.print_table(ring, last=len(updates),
+                                  file=str(out_dir / "stats.txt"))
+    n_rec = int(ring.head)
+    check(n_rec == len(updates), f"{n_rec} stats rows for {len(updates)} "
+          "updates")
+    data = ring.data.cpu().numpy()
+    want = np.stack([u[2] for u in updates]).astype(np.float32)
+    got = np.stack([data[i % data.shape[0]] for i in range(n_rec)])
+    check(np.array_equal(got[:, 0], np.arange(n_rec, dtype=np.float32)),
+          "the ring's solve column")
+    check(np.array_equal(got[:, 2:], want), "the ring's rows equal the "
+          "stats read back")
+    log = lowlevel_log.load(str(out_dir / "lowlevel.bggl"))
+    rows = np.arange(0, HW_TICKS, HW_LOG_DECIMATION)
+    check(log["tau"].shape == (len(rows), model.num_joints),
+          f"log rows {log['tau'].shape}")
+    check(np.array_equal(log["tau"], cmds[rows, :, 4]),
+          "the log's torques equal the commands sent")
+    check(np.array_equal(log["t"][:, 0], (rows * (1.0 / HW_CONTROL_HZ))
+                         .astype(np.float32)), "the log's times")
+    ck = str(out_dir / "state.npz")
+    checkpoint.save(ck, final_state, metadata={"ticks": HW_TICKS})
+    back = checkpoint.load(ck, tree_map(torch.zeros_like, final_state))
+    n_leaves = check_bitwise(back, final_state, "checkpoint round trip")
+    check(checkpoint.metadata(ck) == {"ticks": HW_TICKS},
+          "checkpoint metadata")
+    trace_dir = out_dir / "trace"
+    with timing.device_trace(str(trace_dir)):
+        ctrl.fns["gait"](*gait_args)
+        torch.cuda.synchronize()
+    traces = list(trace_dir.glob("trace_*.json"))
+    check(len(traces) == 1, f"one trace written: {traces}")
+    names = {e.get("name", "") for e in json_mod.loads(
+        traces[0].read_text()).get("traceEvents", [])}
+    for kname in ("gtwg_kernel", "ipm_iter_kernel"):
+        check(any(kname in n for n in names), f"the trace names {kname}")
+    trace_mb = traces[0].stat().st_size / 2 ** 20
+    shutil.rmtree(trace_dir)
+
+    # 4. card against CPU
+    cmp = hardware_card_vs_cpu(cfg, wb, sim, start64, cmds)
+
+    # 5. free running
+    ticks, overruns, received, lat = free_run(ctrl, model, sim, q0, st)
+    check(not ctrl.errors, f"the controller raised {ctrl.errors!r}")
+    check(len(lat) > 0, "the free run made a tick")
+    ctrl.close()
+
+    ms = {k: [u[1] for u in updates if u[0] == k] for k in ("rti", "gait")}
+    steady = tick_ms[~updated]
+    solved = float(np.mean([u[2][-1] for u in updates]))
+    print(f"[hardware] {card}; A1, batch 1, float32, N={cfg.num_nodes}, "
+          f"{HW_TICKS} ticks at {HW_CONTROL_HZ:.0f} Hz in lockstep over "
+          f"loopback UDP: start (settle, create_initial_run, CPU float64) "
+          f"{start_ms:.0f} ms; loop {loop_s:.1f} s; MPC updates "
+          f"{len(updates)} ({kinds}), solved share {solved:.3f}; final z "
+          f"{q_end[2]:.4f} m (start {z0:.4f}); launches {launches}; "
+          f"captured: gait {cap}", flush=True)
+    print(f"[hardware] ms a control tick (step_once, ticks without an "
+          f"update) median {float(np.median(steady)):.3f}, p90 "
+          f"{float(np.percentile(steady, 90)):.3f}; RTI update graphed "
+          f"{', '.join(f'{t:.1f}' for t in ms['rti'][1:])} ms (first use "
+          f"{ms['rti'][0]:.0f} ms with eager call and capture; eager "
+          f"{ctrl.eager_ms['rti']:.1f} ms); gait update graphed "
+          f"{', '.join(f'{t:.1f}' for t in ms['gait'][1:]) or '-'} ms "
+          f"(first use {ms['gait'][0]:.0f} ms; eager "
+          f"{ctrl.eager_ms['gait']:.1f} ms); tick eager "
+          f"{ctrl.eager_ms['tick']:.1f} ms; replay vs eager bit for bit "
+          f"{ctrl.compared}; the graphed tick alone: device busy "
+          f"{100 * busy['busy_share_of_wall']:.1f}% of {busy['wall_ms']:.2f} "
+          f"ms ({busy['device_ops']} device operations)", flush=True)
+    print("[hardware] stages over the loop:\n" + timers.summary(),
+          flush=True)
+    print(f"[hardware] stats ring ({n_rec} rows) equals the stats read "
+          f"back:\n{table}", flush=True)
+    print(f"[hardware] LowLevelLog: {len(rows)} rows read back equal the "
+          f"commands sent; checkpoint: {n_leaves} leaves bit for bit; "
+          f"trace: {trace_mb:.1f} MB naming gtwg_kernel and "
+          f"ipm_iter_kernel", flush=True)
+    print(f"[hardware] card vs CPU, the first MPC period from one float64 "
+          f"start: {cmp}", flush=True)
+    print(f"[hardware] free run HardwareRobot.run({HW_FREE_S}, rate_hz="
+          f"{HW_CONTROL_HZ:.0f}): {ticks} ticks of "
+          f"{int(HW_FREE_S * HW_CONTROL_HZ)}, RateLoop overruns {overruns}, "
+          f"commands received {received}, step_once ms p50 "
+          f"{float(np.median(lat)):.2f} p99 "
+          f"{float(np.percentile(lat, 99)):.2f} (n {len(lat)})", flush=True)
+    print(f"[hardware] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, krows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -1980,6 +2631,7 @@ def main() -> int:
     cent_launches, cent_rows, schur_rows, cent_ms = phase_centroidal(card)
     admm_ms = phase_admm(cfg)
     fam_launches, fam_rows, fam_ms = phase_families(card)
+    hw_launches, hw_rows = phase_hardware(card)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
     # chol_inverse from the centroidal RTI (phase 9); every path's counts are
@@ -1996,12 +2648,15 @@ def main() -> int:
                                    "centroidal_rti": cent_launches[name],
                                    "admm_block": 0,
                                    **{f"{fam}_cycle": n[name]
-                                      for fam, n in fam_launches.items()}}
+                                      for fam, n in fam_launches.items()},
+                                   "hardware_loop": hw_launches[name]}
         row["closed_loop_checks"] = [r for r in loop_rows
                                      if r["kernel"] == name]
         row["centroidal_checks"] = [r for r in cent_rows
                                     if r["kernel"] == name]
         row["families_checks"] = [r for r in fam_rows if r["kernel"] == name]
+        row["hardware_loop_checks"] = [r for r in hw_rows
+                                       if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
     print(f"[paths] centroidal step ms {json.dumps(cent_ms)}; ADMM block ms "

@@ -251,10 +251,11 @@ def tick_loop(model, params, cfg, wb_cfg, sim, state0, q0, v0, x_des_tan, *,
             mc & (feet[..., 2] < sim.foot_radius + sim.contact_exit_margin))
         if i % mpc_every == 0:
             gait = engine.is_gait_period(i // mpc_every, gait_opt_every)
-            st, cost, solved, trust = engine.mpc_update(
+            st, stats, trust = engine.mpc_update(
                 model, params, cfg, dataclasses.replace(
                     ls, q=q, v=v, st=st, trust=trust), t_i, x_des_tan, feet,
                 mc, gait=gait, contact_sync=contact_sync)
+            cost, solved = stats.cost, stats.solved
             t0 = t_i
         else:
             cost = torch.full((B,), float("nan"), dtype=q.dtype)

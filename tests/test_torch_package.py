@@ -45,6 +45,13 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.models.mini_cheetah",
     "bilevel_gait_gen_tpu_torch.models.urdf",
     "bilevel_gait_gen_tpu_torch.utils.config",
+    "bilevel_gait_gen_tpu_torch.runtime",
+    "bilevel_gait_gen_tpu_torch.control.unitree_wire",
+    "bilevel_gait_gen_tpu_torch.control.hardware",
+    "bilevel_gait_gen_tpu_torch.utils.lowlevel_log",
+    "bilevel_gait_gen_tpu_torch.utils.stats",
+    "bilevel_gait_gen_tpu_torch.utils.timing",
+    "bilevel_gait_gen_tpu_torch.utils.checkpoint",
     "chip_smoke",
     "bench_torch",
 ])
@@ -247,9 +254,11 @@ def test_from_config_round_trips_every_field():
 
 
 def _entry_points():
-    from bilevel_gait_gen_tpu_torch.models import a1
-    from bilevel_gait_gen_tpu_torch.mpc import bilevel, gait
+    from bilevel_gait_gen_tpu_torch.models import a1, srb
+    from bilevel_gait_gen_tpu_torch.mpc import bilevel, gait, qp
+    from bilevel_gait_gen_tpu_torch.ops import quat
     from bilevel_gait_gen_tpu_torch.problem import make_problem
+    from bilevel_gait_gen_tpu_torch.utils import consts, stats
     from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig as PortCfg
     cfg = PortCfg().validate()
     f64 = torch.float64
@@ -266,6 +275,13 @@ def _entry_points():
         "convert.from_centroidal_state": lambda **k: (
             convert.from_centroidal_state(_jax_centroidal_state(), **k)
             .configs),
+        "quat.identity": lambda **k: quat.identity(dtype=f64, **k),
+        "srb.gravity": lambda **k: srb.gravity(f64, **k),
+        "qp.friction_pyramid": lambda **k: qp.friction_pyramid(
+            0.6, dtype=f64, **k),
+        "consts.const": lambda **k: consts.const((1.0, 2.5), f64,
+                                                 k.get("device")),
+        "stats.make_ring": lambda **k: stats.make_ring(4, **k).data,
     }
 
 
@@ -281,7 +297,10 @@ def _jax_centroidal_state():
                                   "make_standing", "init_curvature",
                                   "convert.tensor",
                                   "convert.from_srb_params",
-                                  "convert.from_centroidal_state"])
+                                  "convert.from_centroidal_state",
+                                  "quat.identity", "srb.gravity",
+                                  "qp.friction_pyramid", "consts.const",
+                                  "stats.make_ring"])
 def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
     """device=None means the CUDA device: without one the entry point
     raises and says so (nothing carries on on the CPU unasked); with
