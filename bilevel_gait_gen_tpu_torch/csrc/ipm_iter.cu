@@ -43,9 +43,21 @@
 // p = 256, the centroidal QP's, they would take ~2.2 MB), so for p > 32 the
 // wrapper runs the Schur stage on the stream first (A Mi and (A Mi) A^T by
 // gtwg.cu's gemm_kernel, S^-1 by chol_inverse.cu) and launches
-// ipm_iter_handed_kernel, which reads A and S^-1 from device memory and
-// keeps only the vectors in shared memory (~130 KB at n = 512, m = 1792,
-// p = 256: one block an SM).  The p <= 32 kernel is the same code as
+// ipm_iter_handed_kernel, which reads A, the stage's A Mi and S^-1 from
+// device memory and keeps only the vectors in shared memory (~130 KB at
+// n = 512, m = 1792, p = 256: one block an SM).  Its bound is the same
+// device-memory traffic, so it moves fewer bytes than the resident form's
+// order of passes would (~32 MB a problem and sweep at that shape, from
+// ~39 MB in its first version; reading each matrix once would be 7.7 MB):
+//  * a KKT solve uses the A Mi of the Schur stage: A (Mi r) becomes
+//    (A Mi) r, read in the same pass as Mi r (one pass over [Mi; A Mi]),
+//    and Mi (A^T dy) becomes (A Mi)^T dy, so a solve reads Mi once and A
+//    not at all (Mi twice and A twice before);
+//  * the passes over A that share their vectors are one pass: A^T y with
+//    A x in the residuals, A^T dy with A dx in each refinement (the pass
+//    over G of the residuals, applied to A).
+// Only the association changes ((A Mi) r for A (Mi r)), and the order of
+// summation inside those rows; the p <= 32 kernel is the same code as
 // before, instantiated without the handed inverse.
 // The math and its order of operations follow _iteration_math line by line
 // (only the order inside a row's dot product is the kernel's own),
@@ -65,6 +77,7 @@ constexpr int kSuper = 256;  // columns a lane covers with two 16-byte loads
 struct IpmArgs {
   const float *H, *q, *A, *b, *G, *h, *ga, *M, *Mi;
   const float* Si;  // S^-1 [B, p, p] of the Schur stage, or null (p <= 32)
+  const float* AMi;  // A Mi [B, p, n] of the Schur stage, or null (p <= 32)
   float *x, *y, *lam, *s, *bx, *by, *blam, *bs, *bmerit;
   int *done, *it;
   int n, m, p, refine_steps;
@@ -135,7 +148,8 @@ __device__ inline Vecs carve(float* base, int n, int m, int p) {
 }
 
 __device__ inline Vecs carve_handed(float* base, int n, int m, int p,
-                                    const float* A, const float* Si) {
+                                    const float* A, const float* AMi,
+                                    const float* Si) {
   Vecs v;
   float* c = base;
   float** nv[] = {&v.x, &v.q, &v.rd, &v.r1, &v.dx, &v.e1, &v.t1, &v.t2,
@@ -149,7 +163,8 @@ __device__ inline Vecs carve_handed(float* base, int n, int m, int p,
   for (float** f : pv) { *f = c; c += (p + 3) / 4 * 4; }
   v.A = const_cast<float*>(A);
   v.Si = const_cast<float*>(Si);
-  v.AMi = v.S = v.U = v.X = nullptr;
+  v.AMi = const_cast<float*>(AMi);
+  v.S = v.U = v.X = nullptr;
   v.scratch = c; c += (size_t)kWarps * kSuper;
   v.red = c;
   return v;
@@ -262,6 +277,43 @@ __device__ void mv_rows(const float* Mat, int R, int C, const float* v,
     for (int j = 0; j < kRows; ++j) {
       const float d = warp_sum(acc[j]);
       if (lane == 0 && r0 + j < R) out[r0 + j] = d;
+    }
+  }
+  __syncthreads();
+}
+
+// mv_rows over the rows of Mat1 [R1, C] and then of Mat2 [R2, C] in one
+// pass (the same order of summation in each row): out1 = Mat1 v,
+// out2 = Mat2 v.
+__device__ void mv_rows_pair(const float* Mat1, int R1, const float* Mat2,
+                             int R2, int C, const float* v, float* out1,
+                             float* out2) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int R = R1 + R2;
+  for (int r0 = warp * kRows; r0 < R; r0 += kWarps * kRows) {
+    const float* row[kRows];
+    float acc[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int r = r0 + j;
+      row[j] = r < R1 ? Mat1 + (size_t)r * C : Mat2 + (size_t)(r - R1) * C;
+      acc[j] = 0.f;
+    }
+#pragma unroll 8
+    for (int c = lane; c < C; c += 32) {
+      const float xv = v[c];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j)
+        if (r0 + j < R) acc[j] = fmaf(row[j][c], xv, acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float d = warp_sum(acc[j]);
+      const int r = r0 + j;
+      if (lane == 0 && r < R) {
+        if (r < R1) out1[r] = d;
+        else out2[r - R1] = d;
+      }
     }
   }
   __syncthreads();
@@ -430,11 +482,23 @@ __device__ void chol_inverse_unrolled(float* S, float* U, float* X, float* Si,
 
 // [[M, A^T], [A, 0]] [dx, dy] = [r1, r2] given M^-1 and S^-1
 // (pdip._kkt_solve); uses t1, t2, tp as temporaries, so r1, dx must not
-// be one of them
+// be one of them.  kHanded: with the Schur stage's A Mi (in v.AMi),
+// A Mi r1 and Mi A^T dy = (A Mi)^T dy read it instead of A and Mi.
+template <bool kHanded>
 __device__ void kkt_solve(const IpmArgs& a, const float* Mi, Vecs& v,
                           const float* r1, const float* r2, float* dx,
                           float* dy) {
   const int n = a.n, p = a.p;
+  if constexpr (kHanded) {
+    mv_rows_pair(Mi, n, v.AMi, p, n, r1, v.t1, v.tp);  // Mi r1, A Mi r1
+    for (int i = threadIdx.x; i < p; i += kThreads) v.tp[i] -= r2[i];
+    __syncthreads();
+    mv_rows(v.Si, p, p, v.tp, dy);
+    vtm(dy, v.AMi, p, n, v.t2, v.scratch);       // (A Mi)^T dy
+    for (int c = threadIdx.x; c < n; c += kThreads) dx[c] = v.t1[c] - v.t2[c];
+    __syncthreads();
+    return;
+  }
   mv_rows(Mi, n, n, r1, v.t1);                 // Mi r1
   mv_rows(v.A, p, n, v.t1, v.tp);              // A Mi r1
   for (int i = threadIdx.x; i < p; i += kThreads) v.tp[i] -= r2[i];
@@ -448,6 +512,7 @@ __device__ void kkt_solve(const IpmArgs& a, const float* Mi, Vecs& v,
 
 // one search direction (the solve_dir closure of _iteration_math);
 // ds_extra is ds_a * dl_a for the corrector, absent for the predictor
+template <bool kHanded>
 __device__ void solve_dir(const IpmArgs& a, const float* G, const float* M,
                           const float* Mi, Vecs& v, float sigma_mu,
                           bool corrector, float* dx, float* dy, float* ds,
@@ -464,17 +529,21 @@ __device__ void solve_dir(const IpmArgs& a, const float* G, const float* M,
   for (int c = threadIdx.x; c < n; c += kThreads) v.r1[c] = -(v.rd[c] + v.e1[c]);
   for (int i = threadIdx.x; i < p; i += kThreads) v.r2[i] = -v.rp[i];
   __syncthreads();
-  kkt_solve(a, Mi, v, v.r1, v.r2, dx, dy);
+  kkt_solve<kHanded>(a, Mi, v, v.r1, v.r2, dx, dy);
   for (int step = 0; step < a.refine_steps; ++step) {
     // e1 = r1 - (M dx + A^T dy); e2 = r2 - A dx
     mv_rows(M, n, n, dx, v.e1);
-    vtm(dy, v.A, p, n, v.t2, v.scratch);
-    mv_rows(v.A, p, n, dx, v.e2);
+    if constexpr (kHanded) {
+      g_residual_pass(v.A, p, n, dx, dy, v.e2, v.t2, v.scratch);
+    } else {
+      vtm(dy, v.A, p, n, v.t2, v.scratch);
+      mv_rows(v.A, p, n, dx, v.e2);
+    }
     for (int c = threadIdx.x; c < n; c += kThreads)
       v.e1[c] = v.r1[c] - (v.e1[c] + v.t2[c]);
     for (int i = threadIdx.x; i < p; i += kThreads) v.e2[i] = v.r2[i] - v.e2[i];
     __syncthreads();
-    kkt_solve(a, Mi, v, v.e1, v.e2, v.cx, v.cy);
+    kkt_solve<kHanded>(a, Mi, v, v.e1, v.e2, v.cx, v.cy);
     for (int c = threadIdx.x; c < n; c += kThreads) dx[c] += v.cx[c];
     for (int i = threadIdx.x; i < p; i += kThreads) dy[i] += v.cy[i];
     __syncthreads();
@@ -510,6 +579,7 @@ __device__ __forceinline__ void ipm_iter_body(const IpmArgs& a, float* smem) {
   const int pb = blockIdx.x;
   const float* Ag = a.A + (size_t)pb * p * n;
   Vecs v = kHanded ? carve_handed(smem, n, m, p, Ag,
+                                  a.AMi + (size_t)pb * p * n,
                                   a.Si + (size_t)pb * p * p)
                    : carve(smem, n, m, p);
   const size_t on = (size_t)pb * n, om = (size_t)pb * m, op = (size_t)pb * p;
@@ -568,11 +638,14 @@ __device__ __forceinline__ void ipm_iter_body(const IpmArgs& a, float* smem) {
   // residuals: r_d = H x + q + A^T y + G^T lam, r_p = A x - b,
   // r_g = G x + s - h
   mv_rows(H, n, n, v.x, v.t1);
-  vtm(v.y, v.A, p, n, v.t2, v.scratch);
+  if constexpr (kHanded)
+    g_residual_pass(v.A, p, n, v.x, v.y, v.rp, v.t2, v.scratch);
+  else
+    vtm(v.y, v.A, p, n, v.t2, v.scratch);
   g_residual_pass(G, m, n, v.x, v.lam, v.rg, v.e1, v.scratch);
   for (int c = threadIdx.x; c < n; c += kThreads)
     v.rd[c] = ((v.t1[c] + v.q[c]) + v.t2[c]) + v.e1[c];
-  mv_rows(v.A, p, n, v.x, v.rp);
+  if constexpr (!kHanded) mv_rows(v.A, p, n, v.x, v.rp);
   for (int i = threadIdx.x; i < p; i += kThreads) v.rp[i] -= v.b[i];
   for (int k = threadIdx.x; k < m; k += kThreads)
     v.rg[k] = (v.rg[k] + v.s[k]) - v.h[k];
@@ -582,7 +655,7 @@ __device__ __forceinline__ void ipm_iter_body(const IpmArgs& a, float* smem) {
   const float mu = block_sum(sl, v.red) / m_act;
 
   // predictor (affine): only ds_a, dl_a are kept
-  solve_dir(a, G, M, Mi, v, 0.f, false, v.dx, v.dy, v.dsa, v.dla);
+  solve_dir<kHanded>(a, G, M, Mi, v, 0.f, false, v.dx, v.dy, v.dsa, v.dla);
   const float ap_a = max_step(v.s, v.dsa, m, v.red);
   const float ad_a = max_step(v.lam, v.dla, m, v.red);
   float sa = 0.f;
@@ -593,7 +666,8 @@ __device__ __forceinline__ void ipm_iter_body(const IpmArgs& a, float* smem) {
   const float sigma = clip(ratio * ratio * ratio, 0.f, 1.f);
 
   // corrector
-  solve_dir(a, G, M, Mi, v, sigma * mu, true, v.dxc, v.dyc, v.ds, v.dl);
+  solve_dir<kHanded>(a, G, M, Mi, v, sigma * mu, true, v.dxc, v.dyc, v.ds,
+                     v.dl);
   const float a_p = 0.99f * max_step(v.s, v.ds, m, v.red);
   const float a_d = 0.99f * max_step(v.lam, v.dl, m, v.red);
 
@@ -657,7 +731,8 @@ ipm_iter_handed_kernel(IpmArgs a) {
 BGGT_API int bggt_ipm_iter(const float* H, const float* q, const float* A,
                            const float* b, const float* G, const float* h,
                            const float* g_active, const float* M,
-                           const float* Mi, const float* Si, float* x,
+                           const float* Mi, const float* Si,
+                           const float* AMi, float* x,
                            float* y, float* lam,
                            float* s, float* bx, float* by, float* blam,
                            float* bs, float* bmerit, int* done, int* it,
@@ -665,10 +740,11 @@ BGGT_API int bggt_ipm_iter(const float* H, const float* q, const float* A,
                            float tol_r, float w_lo, float w_hi, float eps,
                            int refine_steps, void* stream) {
   if (n % 128 != 0 || m % 128 != 0 || n > 128 * bggt::kWarps ||
-      (Si == nullptr && p > bggt::kMaxP))
+      (Si == nullptr && p > bggt::kMaxP) ||
+      ((Si == nullptr) != (AMi == nullptr)))
     return (int)cudaErrorInvalidValue;
-  bggt::IpmArgs a{H, q, A, b, G, h, g_active, M, Mi, Si, x, y, lam, s, bx,
-                  by, blam, bs, bmerit, done, it, n, m, p, refine_steps,
+  bggt::IpmArgs a{H, q, A, b, G, h, g_active, M, Mi, Si, AMi, x, y, lam, s,
+                  bx, by, blam, bs, bmerit, done, it, n, m, p, refine_steps,
                   reg_s, tol, tol_r, w_lo, w_hi, eps};
   if (Si != nullptr) {
     const size_t bytes = bggt::smem_floats_handed(n, m, p) * sizeof(float);

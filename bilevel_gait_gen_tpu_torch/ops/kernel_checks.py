@@ -124,6 +124,31 @@ def sweep_work(B: int, m: int, n: int, p: int,
             iter_flops, nbytes)
 
 
+def handed_sweep_bytes(B: int, m: int, n: int, p: int,
+                       refine_steps: int) -> dict[str, float]:
+    """Bytes of one sweep of ``ipm_iter.cu::ipm_iter_handed_kernel`` at
+    [B, n, m, p]: ``bound``, its inputs (H, M, Mi, G, A, A Mi, S^-1 and the
+    vectors) read once and its outputs written once; ``design``, what its
+    passes read (H once, G five times, M once a refinement, and per KKT
+    solve, two a direction and one more a refinement: Mi once, A Mi twice,
+    S^-1 once; A once in the residuals and once a refinement);
+    ``first_version``, the passes of the kernel before it was handed A Mi
+    (per KKT solve Mi twice and A twice, A twice in the residuals and twice
+    a refinement, and the same passes over H, G, M and S^-1)."""
+    nn, mn, pn, pp = n * n, m * n, p * n, p * p
+    vecs = 4 * (n + p + 2 * m) + 3 * m
+    solves = 2 * (1 + refine_steps)
+    per = dict(
+        bound=3 * nn + mn + 2 * pn + pp + vecs,
+        design=(nn + 5 * mn + 2 * refine_steps * nn
+                + solves * (nn + 2 * pn + pp)
+                + (1 + 2 * refine_steps) * pn + vecs),
+        first_version=(nn + 5 * mn + 2 * refine_steps * nn
+                       + solves * (2 * nn + 2 * pn + pp)
+                       + (2 + 4 * refine_steps) * pn + vecs))
+    return {k: 4.0 * B * v for k, v in per.items()}
+
+
 def rel_err(got, ref) -> float:
     scale = float(torch.amax(torch.abs(ref)))
     return float(torch.amax(torch.abs(got - ref))) / max(scale, 1e-30)

@@ -28,14 +28,15 @@ Ports of the three TPU kernels of
   p of equality rows; the iteration kernel forms and inverts the p x p
   Schur complement in its shared memory only up to p = 32.  For p > 32
   (the centroidal QP: p = 256) the wrapper runs the Schur stage on the
-  stream before it, :func:`schur_inverse`: A Mi and (A Mi) A^T by
+  stream before it, :func:`schur_stage`: A Mi and (A Mi) A^T by
   :func:`rgemm` (``csrc/gtwg.cu``, the kernel of the Newton-Schulz
   product at a rectangular shape), S^-1 by :func:`chol_inverse`
-  (``csrc/chol_inverse.cu``, the unrolled Cholesky of
-  ``pallas_kernels._chol_inverse_unrolled`` on the packed upper triangle
-  in one block's shared memory), and the iteration kernel reads A and S^-1
-  from device memory.  The branch is picked by shape, never by a failed
-  launch.
+  (``csrc/chol_inverse.cu``, the Cholesky of
+  ``pallas_kernels._chol_inverse_unrolled`` blocked on 32-wide panels,
+  the upper triangle's tiles in one block's shared memory), and the
+  iteration kernel reads A, A Mi and S^-1 from device memory (A Mi in
+  place of A and Mi in its KKT solves).  The branch is picked by shape,
+  never by a failed launch.
 * :func:`gj_inverse` (``csrc/gj_inverse.cu``) replaces
   ``pallas_kernels.gj_inverse``: the batched Gauss-Jordan inverse without
   pivoting, blocked (width 32) for n a multiple of the block width.  One
@@ -56,10 +57,12 @@ Ports of the three TPU kernels of
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version only on a CPU tensor; there is no fallback.  Each keeps
 a plain integer count of its launches in ``<wrapper>.launches``
-(``gj_inverse`` also by form, in ``gj_inverse.launches_by_form``).  The
-launches go to ``torch.cuda.current_stream()``, so a CUDA graph capture
-takes them; a launch made under capture counts once, and the graph's
-replays do not move the counts (``utils/graphs.Graphed`` keeps those).  A
+(``gj_inverse`` also by form, in ``gj_inverse.launches_by_form``;
+``ipm_iter`` by the iteration kernel it launched, in
+``ipm_iter.launches_by_kernel``).  The launches go to
+``torch.cuda.current_stream()``, so a CUDA graph capture takes them; a
+launch made under capture counts once, and the graph's replays do not move
+the counts (``utils/graphs.Graphed`` keeps those).  A
 launcher sets its kernel's shared-memory limit once, at its first launch,
 and makes no other call than the launch after that.
 
@@ -96,7 +99,7 @@ _SIGNATURES = {
                   _I),
     "bggt_gemm": ([_P, _P, _P, _I, _I, _F, _F, _I, _P], _I),
     "bggt_rgemm": ([_P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
-    "bggt_ipm_iter": ([_P] * 21 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+    "bggt_ipm_iter": ([_P] * 22 + [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
                                    _I, _P], _I),
     "bggt_ipm_iter_smem_bytes": ([_I, _I, _I, _I], _I),
     "bggt_chol_inverse": ([_P, _P, _I, _I, _P], _I),
@@ -351,10 +354,11 @@ def chol_inverse_unrolled(S: torch.Tensor) -> torch.Tensor:
 
 
 def chol_inverse(S: torch.Tensor) -> torch.Tensor:
-    """Explicit inverse of SPD [B, p, p] by the unrolled Cholesky (reads the
-    upper rows; no failure check): ``csrc/chol_inverse.cu`` on the card, one
-    block a matrix with its packed upper triangle in shared memory, which
-    bounds p (336 on a Hopper block); :func:`chol_inverse_unrolled` on CPU
+    """Explicit inverse of SPD [B, p, p] by the Cholesky of the unrolled
+    version, blocked on 32-wide panels (reads the upper rows; no failure
+    check): ``csrc/chol_inverse.cu`` on the card, one block a matrix with
+    the upper triangle's 32 x 32 tiles in shared memory, which bounds p
+    (320 on a Hopper block); :func:`chol_inverse_unrolled` on CPU
     tensors."""
     B, p, p2 = S.shape
     _require(p == p2, f"square matrices expected, got {tuple(S.shape)}")
@@ -363,7 +367,7 @@ def chol_inverse(S: torch.Tensor) -> torch.Tensor:
     lib, _ = build()
     need = lib.bggt_chol_inverse_smem_bytes(p)
     _require(need <= MAX_SMEM_BYTES,
-             f"p={p}: the packed triangle needs {need} bytes of shared "
+             f"p={p}: the triangle's tiles need {need} bytes of shared "
              f"memory")
     S = S.contiguous()
     out = torch.empty_like(S)
@@ -376,16 +380,17 @@ def chol_inverse(S: torch.Tensor) -> torch.Tensor:
 chol_inverse.launches = 0
 
 
-def schur_inverse(A: torch.Tensor, Mi: torch.Tensor,
-                  reg_s: float) -> torch.Tensor:
-    """S^-1 of the Schur complement S = (A Mi) A^T + reg_s I of a sweep
-    (A [B, p, n], Mi [B, n, n]): two :func:`rgemm` products and
+def schur_stage(A: torch.Tensor, Mi: torch.Tensor,
+                reg_s: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A Mi, S^-1) of the Schur complement S = (A Mi) A^T + reg_s I of a
+    sweep (A [B, p, n], Mi [B, n, n]): two :func:`rgemm` products and
     :func:`chol_inverse`, the stage the wrapper of :func:`ipm_iter` runs
-    before the iteration kernel where p > :data:`IPM_RESIDENT_P`.  On CPU
-    tensors the same three functions run their plain versions, which are
-    ``_iteration_math``'s with ``chol_inverse_unrolled``."""
+    before the iteration kernel where p > :data:`IPM_RESIDENT_P`, which
+    takes both.  On CPU tensors the same three functions run their plain
+    versions, which are ``_iteration_math``'s with
+    ``chol_inverse_unrolled``."""
     AMi = rgemm(A, Mi)
-    return chol_inverse(rgemm(AMi, A.mT.contiguous(), diag=reg_s))
+    return AMi, chol_inverse(rgemm(AMi, A.mT.contiguous(), diag=reg_s))
 
 
 def ipm_iter_reference(H, q, A, b, G, h, g_active, x, y, lam, s, done, it,
@@ -419,16 +424,17 @@ IPM_RESIDENT_P = 32   # the iteration kernel forms S itself up to this p
 
 def ipm_iter_launch(lib, stream, H, q, A, b, G, h, g_active, M, Mi, x, y,
                     lam, s, bx, by, blam, bs, bmerit, done_i, it, *, reg,
-                    tol, refine_steps, Si=None) -> None:
+                    tol, refine_steps, Si=None, AMi=None) -> None:
     """Launch the iteration kernel of csrc/ipm_iter.cu (state in place);
-    with ``Si`` (the Schur stage's S^-1, p > 32) its handed variant."""
+    with ``Si`` and ``AMi`` (the Schur stage's S^-1 and A Mi, p > 32) its
+    handed variant."""
     B, m, n = G.shape
     p = A.shape[-2]
     eps = torch.finfo(torch.float32).eps
     w_hi = 0.01 / eps
     rc = lib.bggt_ipm_iter(
-        *(_ptr(t) for t in (H, q, A, b, G, h, g_active, M, Mi, Si, x, y, lam,
-                            s, bx, by, blam, bs, bmerit, done_i, it)),
+        *(_ptr(t) for t in (H, q, A, b, G, h, g_active, M, Mi, Si, AMi, x, y,
+                            lam, s, bx, by, blam, bs, bmerit, done_i, it)),
         B, n, m, p, max(reg, 1e-7), tol, 1e3 * tol, 1.0 / w_hi, w_hi, eps,
         refine_steps, stream)
     _check(lib, rc, "ipm_iter")
@@ -449,7 +455,7 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
     iterate tensors x, y, lam, s and the ``best`` tuple are updated in
     place (in contiguous copies where they were not contiguous) and
     returned; ``done`` (bool) and ``it`` (int32) come back as new tensors,
-    with Mi.  Where p > 32 the Schur stage (:func:`schur_inverse`) runs
+    with Mi.  Where p > 32 the Schur stage (:func:`schur_stage`) runs
     before the iteration kernel."""
     bx, by, blam, bs, bmerit = best
     B, m, n = G.shape
@@ -503,16 +509,21 @@ def ipm_iter(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
             ns_gemm_launch(lib, stream, M, Mi, T, -1.0, 2.0)
             ns_gemm_launch(lib, stream, Mi, T, X, 1.0, 0.0)
             Mi = X
-    Si = schur_inverse(A, Mi, max(reg, 1e-7)) if handed else None
+    AMi, Si = (schur_stage(A, Mi, max(reg, 1e-7)) if handed
+               else (None, None))
     done_i = done.to(torch.int32)
     ipm_iter_launch(lib, stream, H, q, A, b, G, h, g_active, M, Mi, x, y,
                     lam, s, bx, by, blam, bs, bmerit, done_i, it, reg=reg,
-                    tol=tol, refine_steps=refine_steps, Si=Si)
+                    tol=tol, refine_steps=refine_steps, Si=Si, AMi=AMi)
     ipm_iter.launches += 1
+    ipm_iter.launches_by_kernel[
+        "ipm_iter_handed_kernel" if handed else "ipm_iter_kernel"] += 1
     return x, y, lam, s, done_i.bool(), it, (bx, by, blam, bs, bmerit), Mi
 
 
 ipm_iter.launches = 0
+IPM_KERNELS = ("ipm_iter_kernel", "ipm_iter_handed_kernel")
+ipm_iter.launches_by_kernel = dict.fromkeys(IPM_KERNELS, 0)
 
 
 # ----------------------------------------------------------------------------
@@ -731,6 +742,7 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     gtwg.launches = 0
     ipm_iter.launches = 0
+    ipm_iter.launches_by_kernel = dict.fromkeys(IPM_KERNELS, 0)
     rgemm.launches = 0
     chol_inverse.launches = 0
     gj_inverse.launches = 0

@@ -63,9 +63,11 @@ it on the way:
    rad: ``create_initial_run_centroidal`` and ten shifting
    ``solve_centroidal_step``s through ``gtwg`` at [128, 512, 1792] and the
    p = 256 ``ipm_iter`` chain (its Schur stage ``rgemm`` and
-   ``chol_inverse``), launches counted; each kernel held to its plain
-   version on one step's calls and timed; one step replayed as a CUDA
-   graph bit for bit; card against CPU from one float64 plan;
+   ``chol_inverse``, then ``ipm_iter_handed_kernel``), launches counted;
+   each kernel held to its plain version on one step's calls and timed
+   (the handed kernel also alone, beside its bytes bound); one step
+   replayed as a CUDA graph bit for bit; card against CPU from one float64
+   plan;
 10. the ADMM backend (``qp_backend="admm"``, 1600 iterations a QP) on the
    bench problem at batch 128, float64: an RTI block eagerly and as a
    graph replay, bit for bit, beside the interior-point block; card
@@ -1339,7 +1341,12 @@ def check_schur_stage(args, kw) -> list[dict]:
     the plain products, ``chol_inverse`` against the plain unrolled
     Cholesky; each timed beside its plain version, its bound and the one
     PyTorch call that computes the same function (``bmm``, ``baddbmm``,
-    ``linalg.inv_ex``).  Returns one row per kernel."""
+    ``linalg.inv_ex``).  Then the iteration kernel that follows the stage,
+    ``ipm_iter_handed_kernel``, launched alone on the stage's own A Mi and
+    S^-1: its result bit for bit the wrapper's sweep (which
+    ``kernel_checks.check_recorded_calls`` holds to the plain version), its
+    time beside the sweep's through the wrapper, its bytes bound and the
+    bytes its passes move.  Returns one row per kernel."""
     import torch
     from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
     from bilevel_gait_gen_tpu_torch.ops import kernels
@@ -1413,7 +1420,8 @@ def check_schur_stage(args, kw) -> list[dict]:
                      library_ms=kc.cuda_ms(
                          lambda: torch.linalg.inv_ex(S).inverse),
                      shape=[B, p]))
-    r0, r1 = rows
+    rows.append(check_handed_kernel(args, kw, A, Mi, AMi, Si))
+    r0, r1, r2 = rows
     print(f"[centroidal] Schur stage [{B}, p={p}, n={n}]: rgemm A Mi rel "
           f"{e_ami:.2e}, (A Mi) A^T rel {e_s:.2e} (<= {kc.TOL_GTWG}); "
           f"kernel {r0['a_mi_ms']:.3f} + {r0['s_ms']:.3f} ms (bmm "
@@ -1426,7 +1434,86 @@ def check_schur_stage(args, kw) -> list[dict]:
           f"{res_ref:.3e}, <= {CHOL_RES:g}x), kernel {r1['ms']:.3f} ms, plain "
           f"{r1['plain_ms']:.3f} ms, inv_ex {r1['library_ms']:.3f} ms, "
           f"bound {bnd:.3f} ms ({by})", flush=True)
+    print(f"[centroidal] ipm_iter_handed_kernel alone [{B}, {r2['shape'][1]}, "
+          f"{r2['shape'][2]}, {p}] on the stage's A Mi and S^-1: bit for bit "
+          f"the wrapper's sweep; rel to the plain sweep {r2['max_rel_err']:.2e} "
+          f"(the wrapper's sweep is gated above); kernel {r2['ms']:.3f} ms, "
+          f"the sweep through the wrapper {r2['sweep_ms']:.3f} ms, plain sweep "
+          f"{r2['plain_ms']:.3f} ms; bound {r2['bound_ms']:.3f} ms "
+          f"({r2['bound_by']}: {r2['bound_bytes'] / 1e9:.3f} GB, its inputs "
+          f"once); its passes move {r2['design_bytes'] / 1e9:.3f} GB "
+          f"({r2['design_bytes_ms']:.3f} ms at the memory rate; the first "
+          f"version's {r2['first_version_bytes'] / 1e9:.3f} GB), "
+          f"{r2['design_bytes'] / r2['ms'] / 1e9:.3f} TB/s achieved",
+          flush=True)
     return rows
+
+
+def check_handed_kernel(args, kw, A, Mi, AMi, Si) -> dict:
+    """``ipm_iter_handed_kernel`` launched alone (``ipm_iter_launch`` with the
+    stage's ``AMi`` and ``Si``) on a recorded p > 32 sweep: bit for bit the
+    sweep through the wrapper on the same state, timed in place (launches
+    in a row, the state stepping on), its bound by
+    ``kernel_checks.handed_sweep_bytes``.  Returns the kernel's row."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    check(not args[15], "the recorded p > 32 sweep is an exact sweep")
+    lib, _ = kernels.build()
+    H, q, _, b, G, h, ga = (t.contiguous() for t in args[:7])
+    B, m, n = G.shape
+    p = A.shape[-2]
+    M = kw.get("M")
+    if M is None:
+        M = kernels.gtwg(H, G, lam=args[9], s=args[10],
+                         w_hi=0.01 / torch.finfo(torch.float32).eps,
+                         reg=kw["reg"])
+    M = M.contiguous()
+    step = dict(reg=kw["reg"], tol=kw["tol"], refine_steps=kw["refine_steps"],
+                Si=Si, AMi=AMi)
+
+    def state():
+        st = kc.fresh_state(args)
+        return [t.contiguous() for t in (*st[7:11], *st[13])] + [
+            st[11].to(torch.int32), st[12].contiguous()]
+
+    st = state()
+    kernels.ipm_iter_launch(lib, kernels._stream(), H, q, A, b, G, h, ga, M,
+                            Mi, *st, **step)
+    wrapped = kernels.ipm_iter(*kc.fresh_state(args), **kw)
+    ref = kernels.ipm_iter_reference(*kc.clone_args(args), **kw)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("x", "y", "lam", "s"), st[:4], wrapped[:4]):
+        check(torch.equal(a, w), f"ipm_iter_handed_kernel alone: {name} bit "
+              f"for bit the wrapper's sweep")
+    check(torch.equal(st[9].bool(), wrapped[4]) and torch.equal(st[10],
+                                                                wrapped[5]),
+          "ipm_iter_handed_kernel alone: done and it the wrapper's")
+    st = state()
+    ms = kc.cuda_ms(lambda: kernels.ipm_iter_launch(
+        lib, kernels._stream(), H, q, A, b, G, h, ga, M, Mi, *st, **step),
+        inner=3)
+    nbytes = kc.handed_sweep_bytes(B, m, n, p, kw["refine_steps"])
+    # two operations for each matrix entry a pass reads
+    bnd, by = kc.bound_ms(0.5 * nbytes["design"], nbytes["bound"])
+    return dict(
+        name="ipm_iter_handed_kernel", route="cuda",
+        source="bilevel_gait_gen_tpu_torch/csrc/ipm_iter.cu",
+        replaces="bilevel_gait_gen_tpu/ops/pallas_kernels.py:155",
+        max_abs_err=max(float(torch.amax(torch.abs(a - r)))
+                        for a, r in zip(wrapped[:4], ref[:4])),
+        max_rel_err=max(kc.rel_err(a, r) for a, r in zip(wrapped[:4],
+                                                         ref[:4])),
+        ms=ms, sweep_ms=kc.cuda_ms(lambda: kernels.ipm_iter(
+            *kc.fresh_state(args), **kw)),
+        plain_ms=kc.cuda_ms(lambda: kernels.ipm_iter_reference(
+            *kc.fresh_state(args), **kw), reps=3),
+        plain_covers="the whole sweep (ipm_iter_reference)",
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        bound_bytes=nbytes["bound"], design_bytes=nbytes["design"],
+        first_version_bytes=nbytes["first_version"],
+        design_bytes_ms=kc.bound_ms(0.0, nbytes["design"])[0],
+        shape=[B, n, m, p])
 
 
 def phase_centroidal(card: str):
@@ -1437,8 +1524,9 @@ def phase_centroidal(card: str):
     1. The entry points, with the kernels' counts set to 0 before and read
        after: ``create_initial_run_centroidal`` and CENT_STEPS
        ``solve_centroidal_step``s at t = 0.05 k with the window shifting.
-       Every sweep is exact: one ``gtwg``, one ``ipm_iter``, two ``rgemm``
-       and one ``chol_inverse`` launch a sweep, counted.  Every output
+       Every sweep is exact: one ``gtwg``, one ``ipm_iter`` (its iteration
+       kernel ``ipm_iter_handed_kernel``), two ``rgemm`` and one
+       ``chol_inverse`` launch a sweep, counted.  Every output
        finite; the initial run solved in every scenario; every step before
        the first whose FK rows straddle a phase bound (below) solved in
        every scenario with alpha >= 0.5 and the joint velocities within
@@ -1508,10 +1596,15 @@ def phase_centroidal(card: str):
                   f"centroidal step {k}: the acceptance bar {row}")
     check(per_step[0]["gated"], "the first centroidal step is gated")
     launches = kernels.launch_counts()
+    by_kernel = dict(kernels.ipm_iter.launches_by_kernel)
     sweeps = (cfg.init_run_iters + CENT_STEPS) * cfg.ipm_iters
     want = {"gtwg": sweeps, "ipm_iter": sweeps, "gj_inverse": 0,
             "rgemm": 2 * sweeps, "chol_inverse": sweeps}
     check(launches == want, f"centroidal launches {launches}, not {want}")
+    check(by_kernel == {"ipm_iter_kernel": 0,
+                        "ipm_iter_handed_kernel": sweeps},
+          f"centroidal iteration kernels {by_kernel}: every sweep handed")
+    launches["ipm_iter_handed_kernel"] = sweeps
     check(tuple(st.vj.shape) == (B, cfg.num_nodes, model.num_joints),
           "joint velocities' shape")
 
@@ -2639,6 +2732,12 @@ def main() -> int:
     rows += schur_rows
     for row in rows:
         name = row["name"]
+        if name == "ipm_iter_handed_kernel":
+            # the iteration kernel of the p > 32 sweeps: the centroidal RTI
+            # is the one path with more than 32 equality rows
+            row["launches"] = cent_launches[name]
+            row["launches_by_path"] = {"centroidal_rti": cent_launches[name]}
+            continue
         path = (launches if name in launches else
                 gj_launches if name in gj_launches else cent_launches)
         row["launches"] = path[name]

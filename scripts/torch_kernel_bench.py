@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Bare-launch times of the PyTorch port's CUDA kernels on one NVIDIA GPU.
 
-    python3 scripts/torch_kernel_bench.py [ROOT] [--only=gtwg,sweep,gj]
+    python3 scripts/torch_kernel_bench.py [ROOT] [--only=gtwg,sweep,gj,schur]
                                           [extra nvcc flags ...]
 
 ROOT is a checkout that holds ``bilevel_gait_gen_tpu_torch`` and
 ``chip_smoke.py`` (default: this one).  Another checkout, such as an
 unpacked parent commit, can be timed beside this one in the same run on the
 same card; the script adapts to the older wrappers (no ``ns_gemm_launch``, no
-``M=`` keyword, no ``gj_launch``).  ``--only=`` names the sections to run
-(default: all three).  It builds the kernels of ROOT, prints the registers
+``M=`` keyword, no ``gj_launch``, no A Mi handed to the iteration kernel).
+``--only=`` names the sections to run (default: all four).  It builds the kernels of ROOT, prints the registers
 ptxas gave each kernel, checks ``gtwg`` and the Newton-Schulz product against
 their plain versions, and times with CUDA events, as the median of 10
 timings of several launches in a row (so that no host work sits in the
@@ -25,12 +25,22 @@ window):
   at the RTI shape [128, 232 -> 256] and the lanes' [512, 256, 256], in the
   form the wrapper picks and (where the tree has them) in each form by name,
   with ``torch.linalg.inv`` beside it, and ``spd_inverse`` whole with its
-  deflation share at [128, 232, 232].
+  deflation share at [128, 232, 232];
+* the p > 32 chain on the centroidal RTI's own sweep (``chip_smoke.py``
+  phase 9's start, the initial run, the calls of step 1 recorded) at
+  [128, 512, 1792, 256]: ``rgemm`` for A Mi and for (A Mi) A^T,
+  ``chol_inverse``, the iteration kernel alone on the stage's outputs, the
+  sweep through its wrapper, and the centroidal step replayed as a CUDA
+  graph.
+
+Each section prints a digest (SHA-256 of the bytes) of what it computed,
+so two trees' results can be compared bit for bit.
 
 ``chip_smoke.py`` measures the same kernels through their wrappers and
 holds them to their tolerances; this script is for comparing two versions
 of a kernel.
 """
+import hashlib
 import inspect
 import sys
 from pathlib import Path
@@ -112,11 +122,94 @@ def bench_gj(lib, stream, dev):
           f"deflation {whole - nodefl:.3f} ms")
 
 
+def digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def bench_schur(lib, stream, dev):
+    """The p > 32 chain on the centroidal RTI's step-1 sweep, bare."""
+    from bilevel_gait_gen_tpu_torch.mpc import centroidal
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
+    cfg = cs.centroidal_config()
+    B = cs.CENT_BATCH
+    model, params, st, x0, feet, x_des = cs.centroidal_start(
+        cfg, B, dev, torch.float32)
+    st, _ = centroidal.create_initial_run_centroidal(
+        cfg, model, params, st, x0, feet, x_des)
+    t1 = torch.full((B,), 0.05, device=dev)
+
+    def step(s_, t0):
+        return centroidal.solve_centroidal_step(cfg, model, params, s_, x0,
+                                                t0, feet, x_des)
+
+    calls = kc.record_kernel_calls(lambda: step(st, t1))
+    args, kw = calls[next(k for k in calls if k[0] == "ipm_iter")]
+    H, q, A, b, G, h, ga = (t.contiguous() for t in args[:7])
+    Mi = args[14].contiguous()
+    _, m, n = G.shape
+    p = A.shape[-2]
+    reg_s = max(kw["reg"], 1e-7)
+    At = A.mT.contiguous()
+    AMi = kernels.rgemm(A, Mi)
+    S = kernels.rgemm(AMi, At, diag=reg_s)
+    Si = kernels.chol_inverse(S)
+    ref = kernels.chol_inverse_unrolled(S)
+    torch.cuda.synchronize()
+    eye = torch.eye(p, dtype=torch.float64, device=dev)
+    res = float(torch.amax(torch.abs(S.double() @ Si.double() - eye)))
+    print(f"schur [{B}, n={n}, m={m}, p={p}]: chol_inverse rel "
+          f"{cs.rel_err(Si, ref):.2e}, max|S Si - I| {res:.3e}, symmetric "
+          f"{torch.equal(Si, Si.mT)}, digest {digest(Si)}; rgemm "
+          f"{cuda_ms(lambda: kernels.rgemm(A, Mi), 5):.3f} + "
+          f"{cuda_ms(lambda: kernels.rgemm(AMi, At, diag=reg_s), 5):.3f} "
+          f"ms, chol_inverse {cuda_ms(lambda: kernels.chol_inverse(S), 5):.3f}"
+          f" ms, torch.linalg.inv_ex "
+          f"{cuda_ms(lambda: torch.linalg.inv_ex(S).inverse):.3f} ms")
+    M = kw["M"].contiguous()
+    handed = dict(Si=Si)
+    if "AMi" in inspect.signature(kernels.ipm_iter_launch).parameters:
+        handed["AMi"] = AMi
+
+    def state():
+        s2 = kc.fresh_state(args)
+        return [t.contiguous() for t in (*s2[7:11], *s2[13])] + [
+            s2[11].to(torch.int32), s2[12].contiguous()]
+
+    once = state()
+    step_kw = dict(reg=kw["reg"], tol=kw["tol"],
+                   refine_steps=kw["refine_steps"], **handed)
+    kernels.ipm_iter_launch(lib, stream, H, q, A, b, G, h, ga, M, Mi, *once,
+                            **step_kw)
+    got = kernels.ipm_iter(*kc.fresh_state(args), **kw)
+    r = kernels.ipm_iter_reference(*kc.clone_args(args), **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, w) for a, w in zip(once[:4], got[:4]))
+    errs = ", ".join(f"{cs.rel_err(a, w):.1e}" for a, w in zip(got[:4], r[:4]))
+    loop = state()
+    alone = cuda_ms(lambda: kernels.ipm_iter_launch(
+        lib, stream, H, q, A, b, G, h, ga, M, Mi, *loop, **step_kw), 3)
+    sweep = cuda_ms(lambda: kernels.ipm_iter(*kc.fresh_state(args), **kw))
+    print(f"   iteration kernel alone {alone:.3f} ms (the wrapper's bits: "
+          f"{same}); sweep through the wrapper {sweep:.3f} ms; x, y, lam, s "
+          f"rel to the plain sweep {errs}; digest {digest(*got[:4])}")
+    g = Graphed(step, st, t1)
+    out = g()
+    graphed = cuda_ms(g, reps=5, warm=1)
+    eager = cuda_ms(lambda: step(st, t1), reps=3, warm=1)
+    print(f"   centroidal step graphed {graphed:.1f} ms, eager {eager:.1f} ms;"
+          f" digest of the replay {digest(out[0].traj.x_man)}")
+    g.close()
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     set_fp32_precision()
-    only = {"gtwg", "sweep", "gj"}
+    only = {"gtwg", "sweep", "gj", "schur"}
     for arg in sys.argv[2:]:
         if arg.startswith("--only="):
             only = set(arg[len("--only="):].split(","))
@@ -133,6 +226,8 @@ def main():
     new_api = hasattr(kernels, "ns_gemm_launch")
     if "gj" in only:
         bench_gj(lib, stream, dev)
+    if "schur" in only:
+        bench_schur(lib, stream, dev)
 
     def gemm(A, Bm, C, alpha, diag):
         if new_api:
@@ -190,7 +285,8 @@ def main():
                          for a, r in zip(got[:4], ref[:4]))
         print(f"lane sweep {idx} do_ns={int(args[15])}: x, y, lam, s rel "
               f"{errs}; done {torch.equal(got[4], ref[4])}, it "
-              f"{torch.equal(got[5], ref[5])}")
+              f"{torch.equal(got[5], ref[5])}; digest "
+              f"{digest(*got[:4], got[5], got[7])}")
         M = kernels.gtwg(H, G, lam=lam, s=s, w_hi=w_hi, reg=kw["reg"])
         state = [t.clone() for t in (x, y, lam, s, *best)]
         done_i, itc = done.to(torch.int32), it.clone()

@@ -799,16 +799,25 @@ def test_ipm_iter_reference_many_rows_matches_pallas_interpret(p):
     assert int(out[5][0]) == int(ref[5])
 
 
-@pytest.mark.parametrize("p", [40, 64])
+# p = 96 at n = 256: two 128-column groups of a matrix pass, and the
+# handed kernel's fused pass over A covers a row in two 16-byte pieces a
+# lane (the shape of the centroidal QP's n = 512 in small)
+MANY_ROWS_WIDE = dict(n=200, m=200, n_p=256, m_p=256)
+
+
+@pytest.mark.parametrize("p", [40, 64, 96])
 def test_ipm_iter_source_on_host_many_rows(host_card, p):
-    """The wrapper's CUDA branch at p = 40 and 64 (n = 128, m = 256), with
-    the Newton-Schulz refresh and with the exact sweep handed its M: the
-    Schur stage (two rgemm launches, one chol_inverse) runs before the
-    iteration kernel's handed variant, and the sweep agrees with
-    ipm_iter_reference to rtol 1e-4 of each field's max (float32 rounding
-    of the same math in another order).  Before the Schur stage existed
-    the wrapper refused p > 32."""
-    T = _sweep_batch((50 + p, 51 + p), p=p, **MANY_ROWS)
+    """The wrapper's CUDA branch at p = 40 and 64 (n = 128, m = 256) and
+    p = 96 (n = 256, m = 256), with the Newton-Schulz refresh and with the
+    exact sweep handed its M: the Schur stage (two rgemm launches, one
+    chol_inverse) runs before the iteration kernel's handed variant, and
+    the sweep agrees with ipm_iter_reference to rtol 1e-4 of each field's
+    max (float32 rounding of the same math in another order; the handed
+    kernel's KKT solves associate (A Mi) r where the plain version has
+    A (Mi r)).  Before the Schur stage existed the wrapper refused
+    p > 32."""
+    T = _sweep_batch((50 + p, 51 + p), p=p,
+                     **(MANY_ROWS if p < 96 else MANY_ROWS_WIDE))
     for do_ns, extra in ((True, {}), (False, {"M": _sweep_M(T)})):
         ref = _run_sweep(kernels.ipm_iter_reference, T, do_ns, **extra)
         before = kernels.launch_counts()
@@ -827,13 +836,16 @@ def test_ipm_iter_source_on_host_many_rows(host_card, p):
                      / ref[7].abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("p", [40, 70])
+@pytest.mark.parametrize("p", [40, 70, 32, 64, 33, 256])
 def test_chol_inverse_source_on_host_matches_reference(host_card, p):
-    """csrc/chol_inverse.cu (packed upper triangle, right-looking steps,
-    the triangular inverse in place, X X^T by 4 x 4 tiles, p = 70 ragged)
-    against chol_inverse_unrolled: 1e-5 of max|Si| (the same steps, the
-    sums in another order; condition ~40), exactly symmetric, and only the
-    upper rows read: a lower triangle of NaN changes nothing."""
+    """csrc/chol_inverse.cu (the upper triangle's 32 x 32 tiles, blocked
+    Cholesky, the triangular inverse by blocks, X X^T by 4 x 4 tiles)
+    against chol_inverse_unrolled at one panel (p = 32), two (64), one
+    column into a second (33), ragged (40, 70: an identity padding, scalar
+    stores at p = 70) and the centroidal QP's p = 256: 1e-5 of max|Si|
+    (the same steps, the sums in another order; condition ~40), exactly
+    symmetric, and only the upper rows read: a lower triangle of NaN
+    changes nothing."""
     S = torch.tensor(_spd_batch(60 + p, 2, p, ridge=0.5))
     before = kernels.chol_inverse.launches
     X = kernels.chol_inverse(S)
@@ -845,6 +857,49 @@ def test_chol_inverse_source_on_host_matches_reference(host_card, p):
                         torch.tensor(float("nan")))
     assert torch.equal(kernels.chol_inverse(upper), X)
     assert float((S @ X - torch.eye(p)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("p", [40, 96])
+def test_ipm_iter_handed_kernel_on_host_takes_the_stage_a_mi(host_card, p):
+    """The handed iteration kernel launched by itself (ipm_iter_launch with
+    Si and AMi) on the Schur stage's A Mi and S^-1, exact sweep handed its
+    M: ipm_iter_reference to rtol 1e-4 of each field's max, done and it
+    equal; it reads A Mi, not A and Mi, in its KKT solves, so an A Mi that
+    is off by a factor moves the step; a launch with Si and no AMi is
+    refused."""
+    shape = MANY_ROWS if p < 96 else MANY_ROWS_WIDE
+    T = _sweep_batch((80 + p, 81 + p), p=p, **shape)
+    H, q, A, b, G, h, ga, x, y, lam, s, Mi = T
+    M = _sweep_M(T)
+    reg, tol = 50 * float(np.finfo(np.float32).eps), 1e-7
+    ref = _run_sweep(kernels.ipm_iter_reference, T, False, M=M)
+    AMi, Si = kernels.schur_stage(A, Mi, max(reg, 1e-7))
+
+    def launch(ami):
+        st = [t.clone() for t in (x, y, lam, s, x, y, lam, s)]
+        bm = torch.tensor([np.inf, 4.0], dtype=torch.float32)
+        done = torch.tensor([0, 1], dtype=torch.int32)
+        it = torch.tensor([0, 2], dtype=torch.int32)
+        kernels.ipm_iter_launch(host_card, None, H, q, A, b, G, h, ga, M, Mi,
+                                *st[:4], *st[4:], bm, done, it, reg=reg,
+                                tol=tol, refine_steps=1, Si=Si, AMi=ami)
+        return st[:4], done, it
+
+    (xo, yo, lo, so), done, it = launch(AMi)
+    for name, g_, r_ in zip(("x", "y", "lam", "s"), (xo, yo, lo, so),
+                            ref[:4]):
+        err = float((g_ - r_).abs().max() / r_.abs().max())
+        assert err <= 1e-4, (name, err)
+    assert torch.equal(done.bool(), ref[4]) and torch.equal(it, ref[5])
+    off = launch(1.5 * AMi)[0][0]
+    assert float((off - xo).abs().max() / xo.abs().max()) > 1e-3
+    with pytest.raises(RuntimeError, match="ipm_iter"):
+        kernels.ipm_iter_launch(host_card, None, H, q, A, b, G, h, ga, M, Mi,
+                                x.clone(), y.clone(), lam.clone(), s.clone(),
+                                x.clone(), y.clone(), lam.clone(), s.clone(),
+                                torch.zeros(2), torch.zeros(2, dtype=torch.int32),
+                                torch.zeros(2, dtype=torch.int32), reg=reg,
+                                tol=tol, refine_steps=1, Si=Si)
 
 
 @pytest.mark.parametrize("R,Cc,K", [(40, 128, 128), (64, 64, 128),
@@ -865,16 +920,17 @@ def test_rgemm_source_on_host_matches_reference(host_card, R, Cc, K):
 
 
 def test_schur_stage_wrappers_on_cpu_run_the_plain_version():
-    """On CPU tensors rgemm, chol_inverse and schur_inverse are their plain
-    versions (what _iteration_math computes with chol_inverse_unrolled),
-    and nothing is launched; a non-square S is refused."""
+    """On CPU tensors rgemm, chol_inverse and schur_stage are their plain
+    versions (what _iteration_math computes with chol_inverse_unrolled,
+    and A Mi), and nothing is launched; a non-square S is refused."""
     rng = np.random.default_rng(61)
     A = torch.tensor(rng.standard_normal((2, 40, 64)))
     L = torch.tensor(rng.standard_normal((2, 64, 64)))
     Mi = L @ L.mT + 64 * torch.eye(64)
     before = kernels.launch_counts()
-    Si = kernels.schur_inverse(A, Mi, 1e-7)
+    AMi, Si = kernels.schur_stage(A, Mi, 1e-7)
     assert kernels.launch_counts() == before
+    assert torch.equal(AMi, A @ Mi)
     S = A @ Mi @ A.mT + 1e-7 * torch.eye(40)
     assert torch.equal(Si, kernels.chol_inverse_unrolled(
         kernels.rgemm_reference(A @ Mi, A.mT.contiguous(), 1e-7)))
