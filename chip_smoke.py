@@ -89,7 +89,24 @@ it on the way:
    versions on its calls; the stats ring, the LowLevelLog, a checkpoint and
    a ``torch.profiler`` trace checked; card against CPU on the first MPC
    period's commands; a free-running ``HardwareRobot.run`` at 1 kHz
-   (ticks, overruns, latency printed).
+   (ticks, overruns, latency printed);
+13. the golden contract (``golden.rollout``, the counterpart of
+   scripts/parity_tpu.py): the initial SQP, 10 RTIs and the outer gradient
+   of scripts/gen_golden.py in float32 on the card, held to
+   tests/golden/a1_trot.npz at parity_tpu.py's cost and cosine bounds and
+   at tests/test_parity.py's float32 bounds, dx (not gated), dc and cos
+   printed beside the CPU float32 rollout's;
+14. the closed-loop harness: ``sim/closed_loop.ClosedLoopController`` (the
+   controller of ``run_closed_loop``) in float32 on the card at
+   ``run_push_recovery``'s configuration and start, the gait update every
+   fifth MPC tick, 1.0 s at 1 kHz with a push at 0.5 s, behind the port's
+   penalty-ground engine in MuJoCo's place (the card's machine has no
+   MuJoCo): finite torques, upright, every graph held to its eager first
+   use; the gait update's QP has p = 56 equality rows (the Raibert rows),
+   so it launches ``gtwg``, ``ipm_iter``, the Schur stage (``rgemm``,
+   ``chol_inverse``) and ``ipm_iter_handed_kernel``, each held to its plain
+   version on the update's own calls; card against CPU on the first 250
+   ticks; n_mpc, n_fails, n_gait_accepts, mpc_ms and ctrl_ms printed.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -1335,7 +1352,7 @@ def finite_outputs(*trees) -> bool:
                if t.is_floating_point())
 
 
-def check_schur_stage(args, kw) -> list[dict]:
+def check_schur_stage(args, kw, label: str = "centroidal") -> list[dict]:
     """The Schur stage of a recorded p > 32 ``ipm_iter`` call on its own
     operands (A, the sweep's Mi): ``rgemm`` for A Mi and (A Mi) A^T against
     the plain products, ``chol_inverse`` against the plain unrolled
@@ -1422,7 +1439,7 @@ def check_schur_stage(args, kw) -> list[dict]:
                      shape=[B, p]))
     rows.append(check_handed_kernel(args, kw, A, Mi, AMi, Si))
     r0, r1, r2 = rows
-    print(f"[centroidal] Schur stage [{B}, p={p}, n={n}]: rgemm A Mi rel "
+    print(f"[{label}] Schur stage [{B}, p={p}, n={n}]: rgemm A Mi rel "
           f"{e_ami:.2e}, (A Mi) A^T rel {e_s:.2e} (<= {kc.TOL_GTWG}); "
           f"kernel {r0['a_mi_ms']:.3f} + {r0['s_ms']:.3f} ms (bmm "
           f"{r0['a_mi_library_ms']:.3f}, baddbmm {r0['s_library_ms']:.3f}; "
@@ -1434,7 +1451,7 @@ def check_schur_stage(args, kw) -> list[dict]:
           f"{res_ref:.3e}, <= {CHOL_RES:g}x), kernel {r1['ms']:.3f} ms, plain "
           f"{r1['plain_ms']:.3f} ms, inv_ex {r1['library_ms']:.3f} ms, "
           f"bound {bnd:.3f} ms ({by})", flush=True)
-    print(f"[centroidal] ipm_iter_handed_kernel alone [{B}, {r2['shape'][1]}, "
+    print(f"[{label}] ipm_iter_handed_kernel alone [{B}, {r2['shape'][1]}, "
           f"{r2['shape'][2]}, {p}] on the stage's A Mi and S^-1: bit for bit "
           f"the wrapper's sweep; rel to the plain sweep {r2['max_rel_err']:.2e} "
           f"(the wrapper's sweep is gated above); kernel {r2['ms']:.3f} ms, "
@@ -2302,14 +2319,19 @@ class PenaltyGroundRobot:
     def apply(self, cmd: bytes) -> np.ndarray:
         """The motor PD law on a command packet, then one control period of
         physics; returns the motor torques."""
-        import torch
-        from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
         nj = len(self.q_np) - 7
         q_des, dq_des, kp, kd, tau_ff = np.frombuffer(
             cmd[8:], np.float32).reshape(nj, 5).T
         tau = np.clip(tau_ff + kp * (q_des - self.q_np[7:])
                       + kd * (dq_des - self.v_np[6:]),
                       -HW_TORQUE_LIMIT, HW_TORQUE_LIMIT)
+        self.advance(tau)
+        return tau
+
+    def advance(self, tau: np.ndarray) -> None:
+        """One control period of physics under the joint torques tau."""
+        import torch
+        from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed
         tau_t = torch.tensor(tau, dtype=self.q.dtype,
                              device=self.q.device)[None]
         if self.q.is_cuda:
@@ -2326,7 +2348,6 @@ class PenaltyGroundRobot:
             self.q, self.v, self.mc = self._physics(self.q, self.v, tau_t,
                                                     self.mc)
         self._read()
-        return tau
 
     def close(self):
         if self.graph is not None:
@@ -2703,6 +2724,348 @@ def phase_hardware(card: str):
     return launches, krows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the golden rollout
+# ---------------------------------------------------------------------------
+
+GOLDEN_TOL_COSTS = 1e-2     # tests/test_parity.py's float32 bounds: costs
+GOLDEN_TOL_X0 = 1e-3        # rtol and atol, the first step's state atol
+
+
+def phase_golden(card: str):
+    """Phase 13: the golden contract on the card, the counterpart of
+    scripts/parity_tpu.py: ``golden.rollout`` (the initial SQP, 10 RTIs and
+    the outer gradient of scripts/gen_golden.py, batch 1) in float32 on the
+    card, eagerly, the kernels' counts set to 0 before and read after.
+    Held to tests/golden/a1_trot.npz at parity_tpu.py's cost and cosine
+    bounds and at tests/test_parity.py's float32 bounds (costs, the first
+    step's state, the cosine and the dominant boundary's sign); its dx,
+    dc and cos printed beside the CPU float32 rollout's own.  parity_tpu.py's
+    dx < 5e-3 is printed, not gated: float32 rollouts miss it on the CPU in
+    both packages (the merit line search flips after the first step,
+    tests/test_parity.py:71-77).  The kernels' calls are recorded in the
+    same run (the first of each kind and shape) and held to their plain
+    versions after the counts are read.  Returns (launches, kernel
+    rows)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch import golden
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    gold = golden.load_golden()
+    kernels.reset_launch_counts()
+    out = {}
+    calls = kc.record_kernel_calls(lambda: out.update(run=timed_ms(
+        golden.rollout, torch.float32, DEVICE)))
+    card_run, card_ms = out["run"]
+    launches = kernels.launch_counts()
+    for name in ("gtwg", "ipm_iter"):
+        check(launches[name] > 0, f"the golden rollout launched {name}: "
+              f"{launches}")
+    t_cpu = time.perf_counter()
+    cpu_run = golden.rollout(torch.float32, "cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    rep = golden.parity_report(gold, card_run)
+    rep_cpu = golden.parity_report(gold, cpu_run)
+    xs, costs, grad, _ = card_run
+    check(rep["finite"], "the card's rollout finite")
+    check(rep["dc"] < golden.DC_BOUND, f"golden costs: rel {rep['dc']:.3e} "
+          f">= {golden.DC_BOUND}")
+    check(rep["cos"] > golden.COS_BOUND, f"golden gradient cosine "
+          f"{rep['cos']:.5f} <= {golden.COS_BOUND}")
+    check(np.allclose(costs, gold["costs"], rtol=GOLDEN_TOL_COSTS,
+                      atol=GOLDEN_TOL_COSTS), "golden costs within "
+          "test_parity's float32 bounds")
+    dx0 = float(np.abs(xs[0] - gold["xs"][0]).max())
+    check(dx0 <= GOLDEN_TOL_X0, f"golden first step: |dx| {dx0:.3e}")
+    i = int(np.argmax(np.abs(gold["grad"])))
+    g = grad.ravel()
+    check(np.sign(g[i]) == np.sign(gold["grad"].ravel()[i])
+          and abs(g[i]) > 0.3 * np.abs(g).max(),
+          "the golden's dominant boundary keeps its sign and scale")
+    per_step = np.abs(xs - gold["xs"]).max(1)
+    print(f"[golden] {card}; A1 trot, N=20, batch 1, float32, eager: "
+          f"rollout {card_ms / 1e3:.2f} s (CPU float32 {cpu_s:.2f} s); "
+          f"launches {launches}", flush=True)
+    print(f"[golden] card: dx {rep['dx']:.3e} (parity_tpu bound "
+          f"{golden.DX_BOUND}; first step {dx0:.3e}), dc {rep['dc']:.3e} "
+          f"(bound {golden.DC_BOUND}), cos {rep['cos']:.6f} (bound "
+          f"{golden.COS_BOUND}), verdict {'OK' if rep['ok'] else 'FAIL'}; "
+          f"CPU float32: dx {rep_cpu['dx']:.3e}, dc {rep_cpu['dc']:.3e}, "
+          f"cos {rep_cpu['cos']:.6f}, verdict "
+          f"{'OK' if rep_cpu['ok'] else 'FAIL'}; card |dx| by step "
+          f"{np.array2string(per_step, precision=2)}", flush=True)
+    # the kernels held to their plain versions on the rollout's own calls
+    # (the outer gradient's cold forward solve, one problem, every sweep
+    # exact), after the counts were read
+    krows = kc.check_recorded_calls(calls, "golden rollout")
+    for name in ("gtwg", "ipm_iter"):
+        check(any(r["kernel"] == name for r in krows),
+              f"{name} checked on the golden rollout's calls")
+    return launches, krows
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the closed-loop harness
+# ---------------------------------------------------------------------------
+
+CLH_SECONDS = 1.0        # simulated, at 1 kHz
+CLH_INIT_VX = 0.375      # run_push_recovery's default
+CLH_GAIT_FREQ = 5        # configs/a1_gait_opt.yaml:27
+CLH_PUSH = (0.5, 0.3)    # (s, m/s) added to the base's forward velocity
+CLH_CMP_TICKS = 250      # card against CPU: 5 MPC ticks, one a gait update
+CLH_Z_MIN = 0.15         # m, ClosedLoopResult.recovered's upright bound
+
+
+class PenaltyGroundPlant(PenaltyGroundRobot):
+    """``MujocoLoop`` as the closed-loop harness needs it, on the port's
+    penalty-ground engine (the card's machine has no MuJoCo): the joint
+    torques applied as they come on every 1 ms tick, ``sim.substeps``
+    physics steps a tick, the measured contact the engine's hysteresis
+    latch; :meth:`run` logs (qs, vs, taus) as ``MujocoLoop.run`` does."""
+
+    def __init__(self, model, sim, q0, v0, *, control_dt):
+        import torch
+        super().__init__(model, sim, q0, control_dt=control_dt)
+        self.v = torch.as_tensor(v0, dtype=q0.dtype, device=q0.device)[
+            None].clone()
+        self._read()
+
+    def contacts(self) -> np.ndarray:
+        return self.mc_np.copy()
+
+    def run(self, control_fn, n_steps: int):
+        qs, vs, taus = [], [], []
+        for k in range(n_steps):
+            q, v = self.q_np.astype(np.float32), self.v_np.astype(np.float32)
+            tau = np.asarray(control_fn(q, v, k * self.control_dt),
+                             np.float64)
+            self.advance(tau)
+            qs.append(self.q_np.copy())
+            vs.append(self.v_np.copy())
+            taus.append(tau)
+        return np.array(qs), np.array(vs), np.array(taus)
+
+    def push(self, dvx: float) -> None:
+        self.v[0, 0] += dvx
+        self._read()
+
+
+def harness_scenario(device):
+    """The harness's scenario, ``sim/closed_loop.push_recovery_scenario`` at
+    CLH_INIT_VX with the gait update every CLH_GAIT_FREQ-th MPC tick:
+    (model, cfg, wb_cfg, q0, v0, the controller's keyword arguments)."""
+    from bilevel_gait_gen_tpu_torch.sim import closed_loop as cl
+    return cl.push_recovery_scenario(init_vx=CLH_INIT_VX,
+                                     gait_opt_freq=CLH_GAIT_FREQ,
+                                     device=device)
+
+
+def harness_run(device, dtype, n_ticks, record_ticks=0):
+    """The harness on ``device``: the port's ``ClosedLoopController`` behind
+    :class:`PenaltyGroundPlant`, the push applied as ``run_closed_loop``
+    applies it (the plant's velocity, then the clock shifted by the push
+    time).  Returns (controller, qs, vs, taus, the first ``record_ticks``
+    ticks' (q, v, t, contacts, tau, the plan and its t0 that the tick
+    tracked, on the host), (ms, whether an MPC tick ran) a tick, the plan
+    of the initial run on the host)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.sim.closed_loop import ClosedLoopController
+    from bilevel_gait_gen_tpu_torch.sim.engine import SimConfig
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    model, cfg, wb, q0, v0, kw = harness_scenario(device)
+    ctl = ClosedLoopController(model, cfg, wb, q0, v0, device=device,
+                               dtype=dtype, **kw)
+    plan0 = tree_map(lambda a: a.to("cpu", copy=True), ctl.state)
+    plant = PenaltyGroundPlant(
+        model, SimConfig(), torch.as_tensor(q0, device=device).to(dtype),
+        v0, control_dt=0.001)
+    record, ticks, plan = [], [], [None]
+
+    def control_fn(q, v, t):
+        mc = plant.contacts()
+        n, t_in = ctl.n, time.perf_counter()
+        tau = ctl(q, v, t, mc)
+        ticks.append(((time.perf_counter() - t_in) * 1e3, ctl.n != n))
+        if len(record) < record_ticks:
+            if ctl.n != n:
+                plan[0] = (tree_map(lambda a: a.to("cpu", copy=True),
+                                    ctl.state.traj), ctl.t0)
+            record.append((q, v, t, mc, tau, *plan[0]))
+        return tau
+
+    n1 = min(int(CLH_PUSH[0] * 1000), n_ticks)
+    try:
+        parts = [plant.run(control_fn, n1)]
+        if n_ticks > n1:
+            plant.push(CLH_PUSH[1])
+            parts.append(plant.run(
+                lambda q, v, t: control_fn(q, v, t + CLH_PUSH[0]),
+                n_ticks - n1))
+    finally:
+        plant.close()
+    qs, vs, taus = (np.concatenate(x) for x in zip(*parts))
+    return ctl, qs, vs, taus, record, ticks, plan0
+
+
+def harness_replay(record, plan0) -> tuple[dict, dict]:
+    """The card's recorded ticks on the CPU, in float64 and float32: (the
+    control ticks alone on the card's own plans, the whole controller from
+    the card's initial plan ``plan0``), each the torques [T, nj] by run,
+    "card" too.  The first takes the card's plan and t0 at each tick, so
+    only the tick's own arithmetic differs; the second runs every MPC
+    update again, and one float32 RTI already moves the plan that the
+    torques track for the rest of the period."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.sim.closed_loop import ClosedLoopController
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    card = np.stack([r[4] for r in record])
+    ticks, loop = {"card": card}, {"card": card}
+    for key, dtype in (("cpu64", torch.float64), ("cpu32", torch.float32)):
+        def conv(a):
+            return a.to(dtype) if a.is_floating_point() else a.clone()
+        model, cfg, wb, q0, v0, kw = harness_scenario("cpu")
+        ctl = ClosedLoopController(model, cfg, wb, q0, v0, device="cpu",
+                                   dtype=dtype, **kw)
+        out = []
+        for q, v, t, mc, _, traj, t0 in record:
+            out.append(ctl.fns["tick"](
+                tree_map(conv, traj),
+                torch.as_tensor(q).to(dtype)[None],
+                torch.as_tensor(v).to(dtype)[None],
+                torch.full((1,), t, dtype=dtype),
+                torch.full((1,), t0, dtype=dtype),
+                torch.as_tensor(np.asarray(mc, bool))[None])[0].numpy())
+        ticks[key] = np.stack(out)
+        ctl.state = tree_map(conv, plan0)
+        loop[key] = np.stack([ctl(*r[:4]) for r in record])
+        ctl.close()
+    return ticks, loop
+
+
+def harness_card_vs_cpu(record, plan0) -> str:
+    """:func:`harness_replay`'s torques held tick for tick: the card's
+    within 10x the CPU float32 run's distance to float64 (at least TOL_CMD,
+    N m here), phase 12's rule at each tick, for the control ticks on the
+    card's plans and for the whole controller."""
+    ticks, loop = harness_replay(record, plan0)
+    parts = []
+    for what, runs in (("control ticks on the card's plans", ticks),
+                       ("whole controller from the card's initial plan",
+                        loop)):
+        d_card = np.abs(runs["card"] - runs["cpu64"]).max(1)
+        d32 = np.abs(runs["cpu32"] - runs["cpu64"]).max(1)
+        lim = np.maximum(10.0 * d32, TOL_CMD)
+        k = int(np.argmax(d_card / lim))
+        check(bool(np.all(d_card <= lim)), f"harness card vs CPU, {what}: "
+              f"tick {k}: |tau card - cpu64| {d_card[k]:.3e} N m > "
+              f"{lim[k]:.3e}")
+        d_c32 = np.abs(runs["card"] - runs["cpu32"]).max(1)
+        parts.append(
+            f"{what}: max|tau card - cpu64| {d_card.max():.3e} N m (cpu32 "
+            f"{d32.max():.3e}), median {np.median(d_card):.3e} (cpu32 "
+            f"{np.median(d32):.3e}); the tick nearest its limit {k}: "
+            f"{d_card[k]:.3e} of {lim[k]:.3e}; max|tau card - cpu32| "
+            f"{d_c32.max():.3e}")
+    return f"over {len(record)} ticks: " + "; ".join(parts)
+
+
+def phase_closed_loop_harness(card: str):
+    """Phase 14: the closed-loop harness's controller on the card.  A1 at
+    ``run_push_recovery``'s configuration and settled start, v0_x = 0.375,
+    the gait update every fifth MPC tick (configs/a1_gait_opt.yaml), 1.0 s
+    at 1 kHz: ``sim/closed_loop.ClosedLoopController`` in float32 on the
+    card (its initial run, RTI, gait update and control tick each a CUDA
+    graph captured at first use and held to the eager call bit for bit)
+    behind :class:`PenaltyGroundPlant`, a push of +0.3 m/s at 0.5 s.
+
+    1. The run, the kernels' counts set to 0 before and read after: every
+       torque finite, the base above CLH_Z_MIN, a gait update ran (4 in
+       1.0 s), every graph held to its eager first use; the gait update
+       launched ``gtwg`` and ``ipm_iter``, and since the Raibert rows give
+       its QP p = 56 equality rows, every sweep through the Schur stage
+       (``rgemm`` x 2, ``chol_inverse``) and ``ipm_iter_handed_kernel``.
+    2. The kernels held to their plain versions on the gait update's own
+       calls (``ops/kernel_checks``; the Schur stage and the handed kernel
+       by :func:`check_schur_stage`), timed.
+    3. Card against CPU on the first CLH_CMP_TICKS ticks
+       (:func:`harness_card_vs_cpu`).
+    Prints n_mpc, n_fails, n_gait_accepts, mpc_ms and ctrl_ms.  Returns
+    (launches, kernel rows)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    n_ticks = int(CLH_SECONDS * 1000)
+    kernels.reset_launch_counts()
+    t_run = time.perf_counter()
+    ctl, qs, vs, taus, record, ticks, plan0 = harness_run(
+        DEVICE, torch.float32, n_ticks, record_ticks=CLH_CMP_TICKS)
+    run_s = time.perf_counter() - t_run
+    launches = kernels.launch_counts()
+    res = ctl.result(qs, vs, taus)
+    check(len(taus) == n_ticks, f"{len(taus)} ticks of {n_ticks}")
+    check(bool(np.isfinite(taus).all()), "every torque finite")
+    check(float(res.z.min()) > CLH_Z_MIN, f"upright: min z {res.z.min():.4f}"
+          f" m")
+    n_gait = res.n_mpc // CLH_GAIT_FREQ
+    check(n_gait >= 1, f"a gait update ran ({res.n_mpc} MPC ticks)")
+    for name in ("init_run", "rti", "gait", "tick"):
+        check(ctl.compared.get(name, 0) > 0, f"the {name} graph held to its "
+              f"eager call: {ctl.compared}")
+    # the Raibert rows take the QP to p = 56 equality rows: every sweep of
+    # the gait update runs the Schur stage and the handed iteration kernel
+    by_kernel = dict(kernels.ipm_iter.launches_by_kernel)
+    cap = ctl.graphs["gait"].captured_launches
+    for name in ("gtwg", "ipm_iter", "rgemm", "chol_inverse"):
+        check(cap[name] > 0 and launches[name] > 0,
+              f"{name} launched by the harness's gait update: {cap}")
+    check(launches["gj_inverse"] == 0, f"no gj_inverse: {launches}")
+    check(launches["rgemm"] == 2 * launches["chol_inverse"]
+          == 2 * launches["ipm_iter"] and by_kernel == {
+              "ipm_iter_kernel": 0,
+              "ipm_iter_handed_kernel": launches["ipm_iter"]},
+          f"every sweep through the Schur stage: {launches}, {by_kernel}")
+    launches["ipm_iter_handed_kernel"] = by_kernel["ipm_iter_handed_kernel"]
+    calls = kc.record_kernel_calls(
+        lambda: ctl.fns["gait"](*ctl.first_args["gait"]))
+    krows = kc.check_recorded_calls(calls, "closed-loop harness")
+    for name in ("gtwg", "ipm_iter"):
+        check(any(r["kernel"] == name for r in krows),
+              f"{name} checked on the harness's calls")
+    # the stage and the handed kernel alone on each exact sweep's operands
+    # (a Newton-Schulz sweep refreshes Mi inside the chain first)
+    for key in [k for k in calls if k[0] == "ipm_iter" and not k[2]]:
+        krows += [dict(r, kernel=r["name"], config="closed-loop harness")
+                  for r in check_schur_stage(*calls[key],
+                                             label="harness")]
+    eager_ms = dict(ctl.eager_ms)
+    ctl.close()
+    t_cmp = time.perf_counter()
+    cmp = harness_card_vs_cpu(record, plan0)
+    cmp_s = time.perf_counter() - t_cmp
+    ms = np.asarray([m for m, _ in ticks])
+    mpc = np.asarray([u for _, u in ticks])
+    print(f"[harness] {card}; A1, run_push_recovery's configuration, "
+          f"float32, batch 1, {n_ticks} ticks at 1 kHz on the penalty "
+          f"ground, push +{CLH_PUSH[1]} m/s at {CLH_PUSH[0]} s: run "
+          f"{run_s:.1f} s; n_mpc {res.n_mpc}, n_fails {res.n_fails}, "
+          f"n_gait_accepts {res.n_gait_accepts} of {n_gait} gait updates; "
+          f"mpc_ms {res.mpc_ms:.2f}, ctrl_ms {res.ctrl_ms:.2f} (means, first "
+          f"uses with their eager calls and captures included); min z "
+          f"{res.z.min():.4f} m, flight {res.flight_s:.3f} s; launches "
+          f"{launches}; captured: gait {cap}", flush=True)
+    print(f"[harness] ms a control call (controller only): ticks without "
+          f"an MPC update median {float(np.median(ms[~mpc])):.3f}, p90 "
+          f"{float(np.percentile(ms[~mpc], 90)):.3f}; with one, after the "
+          f"first uses, median {float(np.median(ms[mpc][2:])):.2f}; eager "
+          f"first uses ms {json.dumps({k: round(v, 1) for k, v in eager_ms.items()})}"
+          f"; graphs held bit for bit {ctl.compared}", flush=True)
+    print(f"[harness] card vs CPU ({cmp_s:.1f} s): {cmp}", flush=True)
+    print(f"[harness] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, krows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -2725,6 +3088,8 @@ def main() -> int:
     admm_ms = phase_admm(cfg)
     fam_launches, fam_rows, fam_ms = phase_families(card)
     hw_launches, hw_rows = phase_hardware(card)
+    golden_launches, golden_rows = phase_golden(card)
+    clh_launches, clh_rows = phase_closed_loop_harness(card)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
     # chol_inverse from the centroidal RTI (phase 9); every path's counts are
@@ -2736,7 +3101,13 @@ def main() -> int:
             # the iteration kernel of the p > 32 sweeps: the centroidal RTI
             # is the one path with more than 32 equality rows
             row["launches"] = cent_launches[name]
-            row["launches_by_path"] = {"centroidal_rti": cent_launches[name]}
+            row["launches_by_path"] = {
+                "centroidal_rti": cent_launches[name],
+                "golden_rollout": 0,
+                "closed_loop_harness": clh_launches[name]}
+            row["golden_rollout_checks"] = []
+            row["closed_loop_harness_checks"] = [
+                r for r in clh_rows if r["kernel"] == name]
             continue
         path = (launches if name in launches else
                 gj_launches if name in gj_launches else cent_launches)
@@ -2748,7 +3119,9 @@ def main() -> int:
                                    "admm_block": 0,
                                    **{f"{fam}_cycle": n[name]
                                       for fam, n in fam_launches.items()},
-                                   "hardware_loop": hw_launches[name]}
+                                   "hardware_loop": hw_launches[name],
+                                   "golden_rollout": golden_launches[name],
+                                   "closed_loop_harness": clh_launches[name]}
         row["closed_loop_checks"] = [r for r in loop_rows
                                      if r["kernel"] == name]
         row["centroidal_checks"] = [r for r in cent_rows
@@ -2756,6 +3129,10 @@ def main() -> int:
         row["families_checks"] = [r for r in fam_rows if r["kernel"] == name]
         row["hardware_loop_checks"] = [r for r in hw_rows
                                        if r["kernel"] == name]
+        row["golden_rollout_checks"] = [r for r in golden_rows
+                                        if r["kernel"] == name]
+        row["closed_loop_harness_checks"] = [r for r in clh_rows
+                                             if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
     print(f"[paths] centroidal step ms {json.dumps(cent_ms)}; ADMM block ms "

@@ -259,9 +259,12 @@ def _entry_points():
     from bilevel_gait_gen_tpu_torch.ops import quat
     from bilevel_gait_gen_tpu_torch.problem import make_problem
     from bilevel_gait_gen_tpu_torch.utils import consts, stats
+    from bilevel_gait_gen_tpu_torch.control.wbqp import WBQPConfig
+    from bilevel_gait_gen_tpu_torch.sim import closed_loop
     from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig as PortCfg
     cfg = PortCfg().validate()
     f64 = torch.float64
+    q0 = np.asarray(a1.stand_config(), np.float64)
     return {
         "make_problem": lambda **k: make_problem(cfg, 2, **k).x0s,
         "make_a1": lambda **k: a1.make_a1(**k).mass,
@@ -282,6 +285,11 @@ def _entry_points():
         "consts.const": lambda **k: consts.const((1.0, 2.5), f64,
                                                  k.get("device")),
         "stats.make_ring": lambda **k: stats.make_ring(4, **k).data,
+        "ClosedLoopController": lambda **k: closed_loop.ClosedLoopController(
+            a1.make_a1(device="cpu"), cfg, WBQPConfig(), q0, np.zeros(18),
+            **k).x_des,
+        "push_recovery_scenario": lambda **k:
+            closed_loop.push_recovery_scenario(**k)[0].mass,
     }
 
 
@@ -300,7 +308,8 @@ def _jax_centroidal_state():
                                   "convert.from_centroidal_state",
                                   "quat.identity", "srb.gravity",
                                   "qp.friction_pyramid", "consts.const",
-                                  "stats.make_ring"])
+                                  "stats.make_ring", "ClosedLoopController",
+                                  "push_recovery_scenario"])
 def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
     """device=None means the CUDA device: without one the entry point
     raises and says so (nothing carries on on the CPU unasked); with
