@@ -39,8 +39,7 @@ from bilevel_gait_gen_tpu_torch.mpc import bilevel, gait, solver
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
 from bilevel_gait_gen_tpu_torch.sim.mujoco_bridge import MujocoLoop
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
-from bilevel_gait_gen_tpu_torch.utils.graphs import (Graphed, tree_leaves,
-                                                      tree_map)
+from bilevel_gait_gen_tpu_torch.utils.graphs import FirstUseGraphs, tree_map
 
 
 class ClosedLoopResult(NamedTuple):
@@ -106,17 +105,6 @@ def settled_start(model: RobotModel, q_stand: np.ndarray,
     return q
 
 
-def _same_bits(a, b) -> bool:
-    """Every tensor of ``a`` equal to its place in ``b`` bit for bit."""
-    def bits(t):
-        return {torch.float32: torch.int32,
-                torch.float64: torch.int64}.get(t.dtype)
-    la, lb = tree_leaves(a), tree_leaves(b)
-    return len(la) == len(lb) and all(
-        torch.equal(x.view(bits(x)), y.view(bits(y))) if bits(x) else
-        torch.equal(x, y) for x, y in zip(la, lb))
-
-
 class ClosedLoopController:
     """The control stack of one robot, batch 1: ``ctl(q, v, t, mc)`` takes
     the measured configuration q [nq] and velocity v [nv] (numpy, the port's
@@ -128,9 +116,10 @@ class ClosedLoopController:
 
     :attr:`fns` holds the functions that run as graphs on the card, by
     name (``init_run``, ``rti``, ``gait``, ``tick`` and, after an arrival,
-    ``init_stand``, ``rti_stand``, ``tick_stand``); :attr:`graphs`,
-    :attr:`first_args`, :attr:`eager_ms` and :attr:`compared` (the number
-    of outputs held bit for bit) what became of each on the card."""
+    ``init_stand``, ``rti_stand``, ``tick_stand``); :attr:`runs` (a
+    :class:`~bilevel_gait_gen_tpu_torch.utils.graphs.FirstUseGraphs`: its
+    ``graphs``, ``first_args``, ``eager_ms`` and ``compared``) what became
+    of each on the card."""
 
     def __init__(self, model: RobotModel, cfg: MPCConfig,
                  wb_cfg: "wbqp.WBQPConfig", q0: np.ndarray, v0: np.ndarray,
@@ -149,8 +138,7 @@ class ClosedLoopController:
         self.recede_target = recede_target
         self.device, self.dtype = dev, dtype
         self.graphed = dev.type == "cuda"
-        self.graphs, self.first_args, self.eager_ms = {}, {}, {}
-        self.compared = {}
+        self.runs = FirstUseGraphs(dev)
 
         q0t = torch.as_tensor(np.asarray(q0), device=dev).to(dtype)
         v0t = torch.as_tensor(np.asarray(v0), device=dev).to(dtype)
@@ -237,25 +225,7 @@ class ClosedLoopController:
         """``fns[name](*args)``: eagerly on the CPU; on the card through
         its graph, captured at the first call and held there to the eager
         call bit for bit."""
-        fn = self.fns[name]
-        if not self.graphed:
-            return fn(*args)
-        g = self.graphs.get(name)
-        if g is not None:
-            return g(*args)
-        self.first_args[name] = tree_map(torch.clone, args)
-        self._sync()
-        t_in = time.perf_counter()
-        eager = fn(*args)
-        self._sync()
-        self.eager_ms[name] = (time.perf_counter() - t_in) * 1e3
-        g = self.graphs[name] = Graphed(fn, *args)
-        out = g(*args)
-        if not _same_bits(out, eager):
-            raise RuntimeError(f"the graph of {name} differs from its eager "
-                               "call")
-        self.compared[name] = len(tree_leaves(out))
-        return out
+        return self.runs(name, self.fns[name], *args)
 
     def _goal(self, x_srb: torch.Tensor) -> torch.Tensor:
         """The commanded tangent state [1, 12] at the SRB state x_srb
@@ -449,9 +419,7 @@ class ClosedLoopController:
 
     def close(self) -> None:
         """Free the graphs (once nothing holds their results)."""
-        for g in self.graphs.values():
-            g.close()
-        self.graphs = {}
+        self.runs.close()
 
 
 def run_closed_loop(model: RobotModel, cfg: MPCConfig,

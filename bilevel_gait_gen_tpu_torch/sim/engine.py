@@ -246,15 +246,12 @@ def closed_loop(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
 
     state0 batch first, q0 [B, nq], v0 [B, nv], x_des_tan [B, 12].  Returns
     (the final MPC state, SimLog with fields [n_ticks, B, ...]).  On CPU
-    tensors the periods run eagerly; on the card each kind of period is
-    captured once as a CUDA graph and replayed, and ``n_ticks`` must then
-    be a multiple of ``mpc_every`` (a graph replays whole periods)."""
+    tensors the periods run eagerly; on the card each kind of period (RTI
+    or gait update, and its length: a trailing partial period when
+    ``mpc_every`` does not divide ``n_ticks``) is captured once as a CUDA
+    graph and replayed."""
     ls = initial_state(model, cfg, sim, state0, q0, v0)
     graphed = q0.is_cuda
-    if graphed and n_ticks % mpc_every:
-        raise ValueError(f"n_ticks={n_ticks} is not a multiple of "
-                         f"mpc_every={mpc_every}: the graphed loop replays "
-                         "whole MPC periods")
 
     def run(gait: bool, ticks: int):
         def fn(state):
@@ -263,7 +260,7 @@ def closed_loop(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
                           contact_sync=contact_sync)
         return fn
 
-    graphs: dict[bool, Graphed] = {}
+    graphs: dict[tuple[bool, int], Graphed] = {}
     logs = []
     try:
         for start in range(0, n_ticks, mpc_every):
@@ -273,10 +270,10 @@ def closed_loop(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
                 ls, log = run(gait, ticks)(ls)
                 logs.append(log)
                 continue
-            if gait not in graphs:
-                graphs[gait] = Graphed(run(gait, ticks), ls,
-                                       carry={0: lambda out: out[0]})
-            g = graphs[gait]
+            if (gait, ticks) not in graphs:
+                graphs[gait, ticks] = Graphed(run(gait, ticks), ls,
+                                              carry={0: lambda out: out[0]})
+            g = graphs[gait, ticks]
             log = g(ls)[1]
             logs.append(tree_map(torch.clone, log))
             ls = g.args[0]

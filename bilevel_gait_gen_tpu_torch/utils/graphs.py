@@ -17,6 +17,7 @@ replay overwrites the last one's results.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
@@ -153,3 +154,64 @@ class Graphed:
         results)."""
         self.graph.reset()
         self.out = self.args = None
+
+
+def _same_bits(a, b) -> bool:
+    """Every tensor of ``a`` equal to its place in ``b`` bit for bit (NaNs
+    included)."""
+    def bits(t):
+        return {torch.float32: torch.int32,
+                torch.float64: torch.int64}.get(t.dtype)
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x.view(bits(x)), y.view(bits(y))) if bits(x) else
+        torch.equal(x, y) for x, y in zip(la, lb))
+
+
+class FirstUseGraphs:
+    """Named functions run as the JAX package's scripts run their
+    ``jax.jit``-ed ones: ``graphs(name, fn, *args)`` calls ``fn(*args)``
+    eagerly on CPU tensors; on the card the first call of a name runs
+    ``fn`` eagerly, captures it as a :class:`Graphed`, replays it and
+    raises unless the replay equals the eager result bit for bit; later
+    calls of the name replay that graph on their arguments (``fn`` is then
+    not looked at).  Python scalars that ``fn`` closes over are constants
+    of the capture, so whatever changes between calls is an argument.
+
+    :attr:`first_args` holds clones of each first call's arguments,
+    :attr:`eager_ms` its eager wall ms, :attr:`compared` the number of
+    outputs held bit for bit, and :attr:`graphs` the graphs, which
+    :meth:`close` frees."""
+
+    def __init__(self, device):
+        self.graphed = torch.device(device).type == "cuda"
+        self.graphs: dict[str, Graphed] = {}
+        self.first_args: dict[str, tuple] = {}
+        self.eager_ms: dict[str, float] = {}
+        self.compared: dict[str, int] = {}
+
+    def __call__(self, name: str, fn: Callable, *args):
+        if not self.graphed:
+            return fn(*args)
+        g = self.graphs.get(name)
+        if g is not None:
+            return g(*args)
+        self.first_args[name] = tree_map(torch.clone, args)
+        torch.cuda.synchronize()
+        t_in = time.perf_counter()
+        eager = fn(*args)
+        torch.cuda.synchronize()
+        self.eager_ms[name] = (time.perf_counter() - t_in) * 1e3
+        g = self.graphs[name] = Graphed(fn, *args)
+        out = g(*args)
+        if not _same_bits(out, eager):
+            raise RuntimeError(f"the graph of {name} differs from its eager "
+                               "call")
+        self.compared[name] = len(tree_leaves(out))
+        return out
+
+    def close(self) -> None:
+        """Free the graphs (once nothing holds their results)."""
+        for g in self.graphs.values():
+            g.close()
+        self.graphs = {}

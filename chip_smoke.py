@@ -106,7 +106,17 @@ it on the way:
    so it launches ``gtwg``, ``ipm_iter``, the Schur stage (``rgemm``,
    ``chol_inverse``) and ``ipm_iter_handed_kernel``, each held to its plain
    version on the update's own calls; card against CPU on the first 250
-   ticks; n_mpc, n_fails, n_gait_accepts, mpc_ms and ctrl_ms printed.
+   ticks; n_mpc, n_fails, n_gait_accepts, mpc_ms and ctrl_ms printed;
+15. the demos (``scripts/torch_*.py``; the three MuJoCo demos need MuJoCo,
+   which the card's machine lacks): torch_mpc_demo.py's path at full width
+   (the initial run, 20 RTIs and the gait update, each a CUDA graph held to
+   its eager first call; the gait update's ``gtwg`` and ``ipm_iter`` calls
+   held to their plain versions; the final plan against the CPU float64
+   run within 10x the CPU float32 gap); torch_batch_sim_demo.py's defaults
+   (100 ticks at mpc_every=12, so a trailing partial period) graphed by
+   ``engine.closed_loop`` against its periods run eagerly, bit for bit;
+   torch_batch_sim_demo.py --big at batch 128 (real-time factor, upright
+   count); torch_diag_engine.py at 500 ticks (its trace, finite).
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -2160,13 +2170,12 @@ class HardwareMPC:
         import torch
         self.model, self.params, self.cfg, self.wb = model, params, cfg, wb
         self.x_des, self.gait_opt_every = x_des, gait_opt_every
+        from bilevel_gait_gen_tpu_torch.utils.graphs import FirstUseGraphs
         self.dtype, self.device = x_des.dtype, x_des.device
-        self.graphed = self.device.type == "cuda"
         self.ring_capacity = ring_capacity
         self.fns = {"rti": self._update_fn(False),
                     "gait": self._update_fn(True), "tick": self._tick}
-        self.graphs, self.compared, self.eager_ms = {}, {}, {}
-        self.first_args = {}
+        self.runs = FirstUseGraphs(self.device)
         self.errors = []
         self.zero = torch.zeros(1, dtype=self.dtype, device=self.device)
 
@@ -2212,22 +2221,8 @@ class HardwareMPC:
     def run(self, name, *args):
         """``fns[name](*args)``: eagerly on the CPU; on the card through its
         graph, captured at the first call and held there to the eager
-        call."""
-        import torch
-        from bilevel_gait_gen_tpu_torch.utils.graphs import (Graphed,
-                                                              tree_map)
-        fn = self.fns[name]
-        if not self.graphed:
-            return fn(*args)
-        g = self.graphs.get(name)
-        if g is not None:
-            return g(*args)
-        self.first_args[name] = tree_map(torch.clone, args)
-        eager, self.eager_ms[name] = timed_ms(fn, *args)
-        g = self.graphs[name] = Graphed(fn, *args)
-        out = g(*args)
-        self.compared[name] = check_bitwise(out, eager, f"graphed {name}")
-        return out
+        call (:attr:`runs`)."""
+        return self.runs(name, self.fns[name], *args)
 
     def __call__(self, q_j, dq, quat, gyro, vcom, t, mode):
         try:
@@ -2272,9 +2267,7 @@ class HardwareMPC:
                 dq_des[0].cpu().numpy(), contact[0].cpu().numpy())
 
     def close(self):
-        for g in self.graphs.values():
-            g.close()
-        self.graphs = {}
+        self.runs.close()
 
 
 class PenaltyGroundRobot:
@@ -2607,24 +2600,24 @@ def phase_hardware(card: str):
           f"against 0.55 x {z0:.4f}")
     kinds = [u[0] for u in ctrl.updates]
     check(kinds.count("gait") >= 1, f"a gait update ran: {kinds}")
-    cap = ctrl.graphs["gait"].captured_launches
+    cap = ctrl.runs.graphs["gait"].captured_launches
     for name in ("gtwg", "ipm_iter"):
         check(cap[name] > 0, f"{name} launched at the gait update's "
               f"capture: {cap}")
     for name in ("rgemm", "chol_inverse", "gj_inverse"):
         check(cap[name] == 0 and launches[name] == 0,
               f"no {name} on the hardware loop: {cap}, {launches}")
-    check(all(v == 0 for v in ctrl.graphs["rti"].captured_launches.values()),
-          f"no kernel in the RTI update: "
-          f"{ctrl.graphs['rti'].captured_launches}")
-    busy = kc.profile_call(ctrl.graphs["tick"], "hardware loop control tick "
-                           "(graphed)")
+    rti_cap = ctrl.runs.graphs["rti"].captured_launches
+    check(all(v == 0 for v in rti_cap.values()),
+          f"no kernel in the RTI update: {rti_cap}")
+    busy = kc.profile_call(ctrl.runs.graphs["tick"],
+                           "hardware loop control tick (graphed)")
     final_state = tree_map(torch.clone, ctrl.st)
     ring = tree_map(torch.clone, ctrl.ring)
     updates = list(ctrl.updates)
 
     # 2. the kernels on the gait update's own calls
-    gait_args = ctrl.first_args["gait"]
+    gait_args = ctrl.runs.first_args["gait"]
     calls = kc.record_kernel_calls(lambda: ctrl.fns["gait"](*gait_args))
     krows = kc.check_recorded_calls(calls, "hardware loop")
     for name in ("gtwg", "ipm_iter"):
@@ -2695,12 +2688,12 @@ def phase_hardware(card: str):
           f"{float(np.percentile(steady, 90)):.3f}; RTI update graphed "
           f"{', '.join(f'{t:.1f}' for t in ms['rti'][1:])} ms (first use "
           f"{ms['rti'][0]:.0f} ms with eager call and capture; eager "
-          f"{ctrl.eager_ms['rti']:.1f} ms); gait update graphed "
+          f"{ctrl.runs.eager_ms['rti']:.1f} ms); gait update graphed "
           f"{', '.join(f'{t:.1f}' for t in ms['gait'][1:]) or '-'} ms "
           f"(first use {ms['gait'][0]:.0f} ms; eager "
-          f"{ctrl.eager_ms['gait']:.1f} ms); tick eager "
-          f"{ctrl.eager_ms['tick']:.1f} ms; replay vs eager bit for bit "
-          f"{ctrl.compared}; the graphed tick alone: device busy "
+          f"{ctrl.runs.eager_ms['gait']:.1f} ms); tick eager "
+          f"{ctrl.runs.eager_ms['tick']:.1f} ms; replay vs eager bit for bit "
+          f"{ctrl.runs.compared}; the graphed tick alone: device busy "
           f"{100 * busy['busy_share_of_wall']:.1f}% of {busy['wall_ms']:.2f} "
           f"ms ({busy['device_ops']} device operations)", flush=True)
     print("[hardware] stages over the loop:\n" + timers.summary(),
@@ -3010,12 +3003,12 @@ def phase_closed_loop_harness(card: str):
     n_gait = res.n_mpc // CLH_GAIT_FREQ
     check(n_gait >= 1, f"a gait update ran ({res.n_mpc} MPC ticks)")
     for name in ("init_run", "rti", "gait", "tick"):
-        check(ctl.compared.get(name, 0) > 0, f"the {name} graph held to its "
-              f"eager call: {ctl.compared}")
+        check(ctl.runs.compared.get(name, 0) > 0, f"the {name} graph held "
+              f"to its eager call: {ctl.runs.compared}")
     # the Raibert rows take the QP to p = 56 equality rows: every sweep of
     # the gait update runs the Schur stage and the handed iteration kernel
     by_kernel = dict(kernels.ipm_iter.launches_by_kernel)
-    cap = ctl.graphs["gait"].captured_launches
+    cap = ctl.runs.graphs["gait"].captured_launches
     for name in ("gtwg", "ipm_iter", "rgemm", "chol_inverse"):
         check(cap[name] > 0 and launches[name] > 0,
               f"{name} launched by the harness's gait update: {cap}")
@@ -3027,7 +3020,7 @@ def phase_closed_loop_harness(card: str):
           f"every sweep through the Schur stage: {launches}, {by_kernel}")
     launches["ipm_iter_handed_kernel"] = by_kernel["ipm_iter_handed_kernel"]
     calls = kc.record_kernel_calls(
-        lambda: ctl.fns["gait"](*ctl.first_args["gait"]))
+        lambda: ctl.fns["gait"](*ctl.runs.first_args["gait"]))
     krows = kc.check_recorded_calls(calls, "closed-loop harness")
     for name in ("gtwg", "ipm_iter"):
         check(any(r["kernel"] == name for r in krows),
@@ -3038,7 +3031,7 @@ def phase_closed_loop_harness(card: str):
         krows += [dict(r, kernel=r["name"], config="closed-loop harness")
                   for r in check_schur_stage(*calls[key],
                                              label="harness")]
-    eager_ms = dict(ctl.eager_ms)
+    eager_ms = dict(ctl.runs.eager_ms)
     ctl.close()
     t_cmp = time.perf_counter()
     cmp = harness_card_vs_cpu(record, plan0)
@@ -3059,10 +3052,201 @@ def phase_closed_loop_harness(card: str):
           f"{float(np.percentile(ms[~mpc], 90)):.3f}; with one, after the "
           f"first uses, median {float(np.median(ms[mpc][2:])):.2f}; eager "
           f"first uses ms {json.dumps({k: round(v, 1) for k, v in eager_ms.items()})}"
-          f"; graphs held bit for bit {ctl.compared}", flush=True)
+          f"; graphs held bit for bit {ctl.runs.compared}", flush=True)
     print(f"[harness] card vs CPU ({cmp_s:.1f} s): {cmp}", flush=True)
     print(f"[harness] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return launches, krows
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the demos
+# ---------------------------------------------------------------------------
+
+DEMO_BIG = ["128", "100", "--big"]   # batch_sim_demo --big: 2 periods of 50
+DEMO_DIAG_TICKS = 500                # diag_engine: 10 periods of 50
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` of this checkout as a module (its ``main`` is
+    not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def demo_plan_gap(card_run, cpu64, cpu32) -> str:
+    """The mpc_demo's final plan (after the gait update) on the card held to
+    the CPU float64 run: its cost and x_man within 10x the CPU float32 run's
+    distance to float64 (at least TOL_CMD, phase 12's floor)."""
+    parts = []
+    for what, get in (("cost", lambda r: r.gait.cost),
+                      ("x_man", lambda r: r.state.traj.x_man)):
+        card, ref, f32 = (get(r).detach().cpu().double().numpy()
+                          for r in (card_run, cpu64, cpu32))
+        d_card = float(np.abs(card - ref).max())
+        d32 = float(np.abs(f32 - ref).max())
+        lim = max(10.0 * d32, TOL_CMD)
+        check(d_card <= lim, f"mpc_demo card vs CPU float64, the final "
+              f"plan's {what}: {d_card:.3e} > {lim:.3e} (CPU float32 "
+              f"{d32:.3e})")
+        parts.append(f"{what} {d_card:.3e} (CPU float32 {d32:.3e}, limit "
+                     f"{lim:.3e})")
+    return "; ".join(parts)
+
+
+def eager_loop(loop: dict):
+    """``engine.closed_loop``'s periods run eagerly on the arguments'
+    device, as its CPU branch runs them: (final state, SimLog)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    ls = engine.initial_state(loop["model"], loop["cfg"], loop["sim"],
+                              loop["state0"], loop["q0"], loop["v0"])
+    logs = []
+    for start in range(0, loop["n_ticks"], loop["mpc_every"]):
+        ls, log = engine.period(
+            loop["model"], loop["params"], loop["cfg"], loop["wb_cfg"],
+            loop["sim"], loop["x_des_tan"], ls,
+            control_dt=loop["control_dt"],
+            ticks=min(loop["mpc_every"], loop["n_ticks"] - start),
+            gait=False, contact_sync=False)
+        logs.append(log)
+    return ls.st, engine.SimLog(*(torch.cat(f) for f in zip(*logs)))
+
+
+def phase_demos(card: str):
+    """Phase 15: the port's demo scripts on the card (scripts/torch_*.py;
+    the three MuJoCo demos need MuJoCo, which the card's machine lacks).
+
+    (a) scripts/torch_mpc_demo.py's path at full width, float32, batch 1,
+        N=20, ipm_iters=18: the initial run, 20 RTIs and one gait update,
+        each a CUDA graph captured at its first call and held to that
+        call's eager result bit for bit (``utils/graphs.FirstUseGraphs``),
+        the kernels' counts set to 0 before and read after and their calls
+        recorded; the gait update's ``gtwg`` and ``ipm_iter`` calls held to
+        their plain versions; the final plan's cost and x_man held to the
+        CPU float64 run within 10x the CPU float32 run's gap.  No plot.
+    (b) scripts/torch_batch_sim_demo.py with its defaults (standing, batch
+        16, 100 ticks, mpc_every=12: 8 periods and a trailing one of 4
+        ticks), graphed by ``engine.closed_loop``, against the same periods
+        run eagerly on the card, bit for bit.
+    (c) scripts/torch_batch_sim_demo.py --big at batch 128, 100 ticks: one
+        run (its graph captured in it), the aggregate real-time factor and
+        the upright count; the plan and the rollout finite.
+    (d) scripts/torch_diag_engine.py at 500 ticks: its trace; the plan
+        and the rollout (q, v, tau) finite.
+    Returns (launches, kernel rows)."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+    t_phase = time.perf_counter()
+    mpc_demo = load_script("torch_mpc_demo")
+    batch_sim = load_script("torch_batch_sim_demo")
+    diag = load_script("torch_diag_engine")
+
+    # (a) the mpc_demo path
+    cfg = MPCConfig(ipm_iters=18).validate()
+    kernels.reset_launch_counts()
+    out = {}
+    t_a = time.perf_counter()
+    calls = kc.record_kernel_calls(lambda: out.update(run=mpc_demo.solve(
+        cfg, mpc_demo.N_ITERS, True, DEVICE)))
+    a_s = time.perf_counter() - t_a
+    launches = kernels.launch_counts()
+    by_kernel = dict(kernels.ipm_iter.launches_by_kernel)
+    run = out["run"]
+    for name in ("gtwg", "ipm_iter"):
+        check(launches[name] > 0, f"mpc_demo's gait update launched {name}:"
+              f" {launches}")
+    check(launches["gj_inverse"] == 0 and launches["chol_inverse"] == 0,
+          f"mpc_demo: no gj_inverse, no Schur stage (p = 16): {launches}")
+    for name in ("init_run", "rti", "gait"):
+        check(run.graphs.compared.get(name, 0) > 0, f"mpc_demo: the {name} "
+              f"graph held to its eager call: {run.graphs.compared}")
+    check(finite_outputs(run.state.traj, run.gait.cost, run.gait.alpha,
+                         run.gait.grad_norm),
+          "mpc_demo: the final plan and the gait update's results finite")
+    t_cpu = time.perf_counter()
+    cpu64 = mpc_demo.solve(cfg, mpc_demo.N_ITERS, True, "cpu",
+                           torch.float64)
+    cpu32 = mpc_demo.solve(cfg, mpc_demo.N_ITERS, True, "cpu",
+                           torch.float32)
+    cpu_s = time.perf_counter() - t_cpu
+    gap = demo_plan_gap(run, cpu64, cpu32)
+    krows = kc.check_recorded_calls(calls, "mpc_demo")
+    for name in ("gtwg", "ipm_iter"):
+        check(any(r["kernel"] == name for r in krows),
+              f"{name} checked on mpc_demo's calls")
+    steady = run.rti_ms[1:]
+    eager_ms = {k: round(v, 1) for k, v in run.graphs.eager_ms.items()}
+    print(f"[demos] {card}; (a) mpc_demo, A1 trot, N=20, ipm_iters=18, "
+          f"float32, batch 1: {a_s:.1f} s; RTIs avg "
+          f"{float(np.mean(run.rti_ms)):.2f} ms (the first with its eager "
+          f"call and capture {run.rti_ms[0]:.1f}), after it median "
+          f"{float(np.median(steady)):.2f}, min {min(steady):.2f}, max "
+          f"{max(steady):.2f}; gait update {run.gait_s * 1e3:.1f} ms with "
+          f"its eager call "
+          f"({run.graphs.eager_ms.get('gait', np.nan):.1f} ms) and capture; "
+          f"eager first calls ms {json.dumps(eager_ms)}"
+          f"; graphs held bit for bit {run.graphs.compared}; launches "
+          f"{launches} ({by_kernel}); card vs CPU float64 ({cpu_s:.1f} s "
+          f"on the CPU): {gap}", flush=True)
+
+    # (b) batch_sim_demo's defaults: graphed against eager, bit for bit
+    kernels.reset_launch_counts()
+    t_b = time.perf_counter()
+    demo = batch_sim.prepare([], DEVICE)
+    loop = demo["loop"]
+    check(loop["n_ticks"] % loop["mpc_every"] != 0,
+          "batch_sim_demo's defaults end on a partial period")
+    graphed, graphed_ms = timed_ms(batch_sim.simulate, demo)
+    eager, eager_ms = timed_ms(eager_loop, loop)
+    n_out = check_bitwise(graphed, eager, "batch_sim_demo graphed loop")
+    z = graphed[1].q[..., 2]
+    check(finite_outputs(graphed[0].traj, graphed[1].q, graphed[1].v,
+                         graphed[1].tau),
+          "batch_sim_demo: the plan and the rollout finite")
+    print(f"[demos] (b) batch_sim_demo defaults, batch {demo['B']}, "
+          f"{loop['n_ticks']} ticks, mpc_every={loop['mpc_every']} (the "
+          f"last period {loop['n_ticks'] % loop['mpc_every']} ticks): "
+          f"graphed {graphed_ms:.0f} ms (captures included), eager on the "
+          f"card {eager_ms:.0f} ms; graphed vs eager bit for bit on all "
+          f"{n_out} outputs; upright {int((z.amin(0) > 0.15).sum())}/"
+          f"{demo['B']}; {time.perf_counter() - t_b:.1f} s", flush=True)
+
+    # (c) batch_sim_demo --big at batch 128
+    t_c = time.perf_counter()
+    big = batch_sim.prepare(DEMO_BIG, DEVICE)
+    (st_big, log_big), run_ms = timed_ms(batch_sim.simulate, big)
+    check(finite_outputs(st_big.traj, log_big.q, log_big.v, log_big.tau),
+          "batch_sim_demo --big: the plan and the rollout finite")
+    z = log_big.q[..., 2]
+    sim_s = big["n_ticks"] * big["control_dt"]
+    print(f"[demos] (c) batch_sim_demo --big, batch {big['B']}, "
+          f"{big['n_ticks']} ticks: one run {run_ms:.0f} ms, its graph "
+          f"captured in it (the script's second, \"steady\" run captures "
+          f"again); real-time factor {big['B'] * sim_s / run_ms * 1e3:.3f} "
+          f"aggregate; upright {int((z.amin(0) > 0.15).sum())}/{big['B']}, "
+          f"z final mean {float(z[-1].mean()):.3f}; "
+          f"{time.perf_counter() - t_c:.1f} s", flush=True)
+
+    # (d) diag_engine at 500 ticks
+    t_d = time.perf_counter()
+    st_d, log_d = diag.probe(DEMO_DIAG_TICKS, DEVICE)
+    check(finite_outputs(st_d.traj, log_d.q, log_d.v, log_d.tau),
+          "diag_engine: the plan and the rollout finite")
+    print(f"[demos] (d) diag_engine, {DEMO_DIAG_TICKS} ticks: "
+          f"{time.perf_counter() - t_d:.1f} s", flush=True)
+    rest = kernels.launch_counts()
+    launches = {k: launches[k] + rest[k] for k in launches}
+    launches["ipm_iter_handed_kernel"] = by_kernel.get(
+        "ipm_iter_handed_kernel", 0)
+    print(f"[demos] launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, krows
 
 
@@ -3090,6 +3274,7 @@ def main() -> int:
     hw_launches, hw_rows = phase_hardware(card)
     golden_launches, golden_rows = phase_golden(card)
     clh_launches, clh_rows = phase_closed_loop_harness(card)
+    demo_launches, demo_rows = phase_demos(card)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
     # chol_inverse from the centroidal RTI (phase 9); every path's counts are
@@ -3104,10 +3289,13 @@ def main() -> int:
             row["launches_by_path"] = {
                 "centroidal_rti": cent_launches[name],
                 "golden_rollout": 0,
-                "closed_loop_harness": clh_launches[name]}
+                "closed_loop_harness": clh_launches[name],
+                "demos": demo_launches[name]}
             row["golden_rollout_checks"] = []
             row["closed_loop_harness_checks"] = [
                 r for r in clh_rows if r["kernel"] == name]
+            row["demos_checks"] = [r for r in demo_rows
+                                   if r["kernel"] == name]
             continue
         path = (launches if name in launches else
                 gj_launches if name in gj_launches else cent_launches)
@@ -3121,7 +3309,8 @@ def main() -> int:
                                       for fam, n in fam_launches.items()},
                                    "hardware_loop": hw_launches[name],
                                    "golden_rollout": golden_launches[name],
-                                   "closed_loop_harness": clh_launches[name]}
+                                   "closed_loop_harness": clh_launches[name],
+                                   "demos": demo_launches[name]}
         row["closed_loop_checks"] = [r for r in loop_rows
                                      if r["kernel"] == name]
         row["centroidal_checks"] = [r for r in cent_rows
@@ -3133,6 +3322,7 @@ def main() -> int:
                                         if r["kernel"] == name]
         row["closed_loop_harness_checks"] = [r for r in clh_rows
                                              if r["kernel"] == name]
+        row["demos_checks"] = [r for r in demo_rows if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
     print(f"[paths] centroidal step ms {json.dumps(cent_ms)}; ADMM block ms "

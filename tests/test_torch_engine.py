@@ -19,7 +19,8 @@ package, float64, and its structure.
   products sum in a batch-size dependent order);
 * the host-copy guard over the per-tick entry points;
 * on the card (``cuda``-marked, skipped here): a replayed period equals
-  the eager one bit for bit.
+  the eager one bit for bit, and so does a graphed loop whose last period
+  is partial.
 """
 import dataclasses
 
@@ -384,5 +385,30 @@ def test_replayed_period_is_the_eager_period(card, gait):
     got = g(ls)
     torch.cuda.synchronize()
     assert_bitwise(got, want)
-    with pytest.raises(ValueError, match="multiple of mpc_every"):
-        run_port(port, GAIT, n_ticks=7)
+
+
+@pytest.mark.cuda
+def test_graphed_loop_with_a_partial_last_period_is_the_eager_loop(card):
+    """30 ticks at mpc_every=12, batch 2, float32: two whole periods and a
+    trailing one of 6 ticks, each kind captured once as a graph, equal bit
+    for bit to the same periods run eagerly on the card."""
+    port = setup(STAND, initial_run=True, dtype=torch.float32)[0]
+    port = tree_map(lambda a: a.to(card), port)
+    port["model"] = a1.make_a1(device=card)
+    loop = {**STAND["loop"], "mpc_every": 12}
+    got = run_port(port, STAND, mpc_every=12)
+    ls = engine.initial_state(port["model"], port["cfg"], port["sim"],
+                              port["state0"], port["q0"], port["v0"])
+    logs = []
+    for start in range(0, loop["n_ticks"], 12):
+        ls, log = engine.period(
+            port["model"], port["params"], port["cfg"], port["wb_cfg"],
+            port["sim"], port["x_des_tan"], ls,
+            control_dt=loop["control_dt"],
+            ticks=min(12, loop["n_ticks"] - start), gait=False,
+            contact_sync=False)
+        logs.append(log)
+    torch.cuda.synchronize()
+    assert got[1].q.shape[0] == 30
+    assert_bitwise(got, (ls.st, engine.SimLog(*(torch.cat(f)
+                                                for f in zip(*logs)))))

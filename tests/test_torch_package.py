@@ -20,6 +20,7 @@ from bilevel_gait_gen_tpu.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch import convert
 from bilevel_gait_gen_tpu_torch.ops import kernels
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
+from test_torch_demos import script
 
 torch.set_num_threads(2)
 
@@ -52,6 +53,7 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.utils.stats",
     "bilevel_gait_gen_tpu_torch.utils.timing",
     "bilevel_gait_gen_tpu_torch.utils.checkpoint",
+    "bilevel_gait_gen_tpu_torch.sim.viz",
     "chip_smoke",
     "bench_torch",
 ])
@@ -63,10 +65,26 @@ def test_port_never_imports_jax(module):
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
+def test_demo_scripts_never_import_jax():
+    """Importing every scripts/torch_*.py (their ``main`` is not run)
+    loads neither jax nor the JAX package."""
+    code = ("import importlib.util, pathlib, sys\n"
+            "for p in sorted(pathlib.Path('scripts').glob('torch_*.py')):\n"
+            "    spec = importlib.util.spec_from_file_location(p.stem, p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'bilevel_gait_gen_tpu'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=Path(__file__).resolve().parent.parent)
+
+
 def _port_sources():
     root = Path(__file__).resolve().parent.parent
-    return sorted((root / "bilevel_gait_gen_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py", root / "bench_torch.py"]
+    return (sorted((root / "bilevel_gait_gen_tpu_torch").rglob("*.py"))
+            + sorted((root / "scripts").glob("torch_*.py"))
+            + [root / "chip_smoke.py", root / "bench_torch.py"])
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -261,6 +279,7 @@ def _entry_points():
     from bilevel_gait_gen_tpu_torch.utils import consts, stats
     from bilevel_gait_gen_tpu_torch.control.wbqp import WBQPConfig
     from bilevel_gait_gen_tpu_torch.sim import closed_loop
+    from bilevel_gait_gen_tpu_torch.sim.engine import SimConfig
     from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig as PortCfg
     cfg = PortCfg().validate()
     f64 = torch.float64
@@ -290,6 +309,19 @@ def _entry_points():
             **k).x_des,
         "push_recovery_scenario": lambda **k:
             closed_loop.push_recovery_scenario(**k)[0].mass,
+        "torch_mpc_demo.setup": lambda **k: script("torch_mpc_demo").setup(
+            cfg, k.get("device")).q0,
+        "torch_batch_sim_demo.setup": lambda **k: script(
+            "torch_batch_sim_demo").setup(cfg, SimConfig(), False,
+                                          k.get("device"))[1],
+        "torch_diag_engine.setup": lambda **k: script(
+            "torch_diag_engine").setup(cfg, SimConfig(), k.get("device"))[1],
+        "torch_hardware_sim_demo.setup": lambda **k: script(
+            "torch_hardware_sim_demo").setup(cfg, True,
+                                             k.get("device"))[2].mass,
+        "torch_run_mujoco_walk.configure": lambda **k: script(
+            "torch_run_mujoco_walk").configure([], k.get("device"))[
+            "model"].mass,
     }
 
 
@@ -309,7 +341,12 @@ def _jax_centroidal_state():
                                   "quat.identity", "srb.gravity",
                                   "qp.friction_pyramid", "consts.const",
                                   "stats.make_ring", "ClosedLoopController",
-                                  "push_recovery_scenario"])
+                                  "push_recovery_scenario",
+                                  "torch_mpc_demo.setup",
+                                  "torch_batch_sim_demo.setup",
+                                  "torch_diag_engine.setup",
+                                  "torch_hardware_sim_demo.setup",
+                                  "torch_run_mujoco_walk.configure"])
 def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
     """device=None means the CUDA device: without one the entry point
     raises and says so (nothing carries on on the CPU unasked); with
