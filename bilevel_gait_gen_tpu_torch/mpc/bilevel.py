@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from bilevel_gait_gen_tpu_torch import resolve_device
 from bilevel_gait_gen_tpu_torch.models.srb import SRBParams
@@ -22,6 +23,7 @@ from bilevel_gait_gen_tpu_torch.mpc import solver as solver_mod
 from bilevel_gait_gen_tpu_torch.mpc.gait import GaitSchedule
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory
 from bilevel_gait_gen_tpu_torch.ops import pdip
+from bilevel_gait_gen_tpu_torch.utils.collectives import all_gather
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch.utils.consts import filled
@@ -250,16 +252,50 @@ def line_search(cfg: MPCConfig, params: SRBParams,
 def _lane_search(cfg: MPCConfig, params: SRBParams,
                  st1: solver_mod.SolverState, step: torch.Tensor,
                  x0_man: torch.Tensor, t0: torch.Tensor,
-                 ee_pos0: torch.Tensor, x_des_tan: torch.Tensor):
+                 ee_pos0: torch.Tensor, x_des_tan: torch.Tensor,
+                 group=None):
     """Line-search lanes: alpha in {i / (LS - 1)}, alpha = 0 included, each
     an assemble + cold ``ls_ipm_iters``-sweep solve.  The B x LS lanes run
     as one batch.  Returns (win_alpha, win_obj, obj0), each per scenario
     (the JAX function also returns the winner's solution, which
-    gait_opt_update does not use)."""
+    gait_opt_update does not use).
+
+    ``group`` (a ``torch.distributed`` process group; the JAX
+    ``axis_name``): the lanes are sharded over its ranks, each solving its
+    contiguous slice of ``cfg.ls_alphas`` (which the group's size must
+    divide), and the objectives are gathered in rank order, so that lane 0
+    stays the alpha = 0 lane."""
     LS = cfg.ls_alphas
     B = x0_man.shape[0]
     dtype, dev = x0_man.dtype, x0_man.device
-    alphas = torch.arange(LS, dtype=dtype, device=dev) / float(max(LS - 1, 1))
+    denom = float(max(LS - 1, 1))
+    lane0, per = 0, LS
+    if group is not None:
+        n_sh = dist.get_world_size(group)
+        per = LS // n_sh
+        if per * n_sh != LS:
+            raise ValueError(f"ls_alphas={LS} must be divisible by the "
+                             f"lane group's size ({n_sh})")
+        lane0 = dist.get_rank(group) * per
+    alphas = torch.arange(lane0, lane0 + per, dtype=dtype, device=dev) / denom
+    objs = _lane_objectives(cfg, params, st1, step, x0_man, t0, ee_pos0,
+                            x_des_tan, alphas)
+    if group is not None:
+        objs = all_gather(objs, group, dim=1)
+        alphas = torch.arange(LS, dtype=dtype, device=dev) / denom
+    best = torch.argmin(objs, dim=-1)
+    return alphas[best], objs[torch.arange(B, device=dev), best], objs[:, 0]
+
+
+def _lane_objectives(cfg: MPCConfig, params: SRBParams,
+                     st1: solver_mod.SolverState, step: torch.Tensor,
+                     x0_man: torch.Tensor, t0: torch.Tensor,
+                     ee_pos0: torch.Tensor, x_des_tan: torch.Tensor,
+                     alphas: torch.Tensor) -> torch.Tensor:
+    """The lanes' QP objectives [B, len(alphas)], inf where a lane's solve
+    fails the quality gate."""
+    LS = alphas.shape[0]
+    B = x0_man.shape[0]
     iters = cfg.ls_ipm_iters or cfg.ipm_iters
 
     def lanes(t):
@@ -283,9 +319,7 @@ def _lane_search(cfg: MPCConfig, params: SRBParams,
     good = ((sol.gap < 1e-3 * scale) & (sol.pri_res < 1e-3 * scale)
             & torch.isfinite(sol.x).all(-1))
     objs = torch.where(good, obj, torch.full_like(obj, float("inf")))
-    objs = objs.reshape(B, LS)
-    best = torch.argmin(objs, dim=-1)
-    return alphas[best], objs[torch.arange(B, device=dev), best], objs[:, 0]
+    return objs.reshape(B, LS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,13 +343,19 @@ def gait_opt_update(cfg: MPCConfig, params: SRBParams,
                     t0: torch.Tensor, ee_pos0: torch.Tensor,
                     x_des_tan: torch.Tensor,
                     trust: torch.Tensor | float | None = None,
-                    curv: OuterCurvature | None = None) -> GaitOptResult:
+                    curv: OuterCurvature | None = None,
+                    ls_group=None) -> GaitOptResult:
     """One full bilevel update for B scenarios, replacing one inner RTI:
     production solve (captured) -> IFT gradient at that solution ->
     projection QP -> line-search lanes -> trust-region acceptance.  With
     ``cfg.gait_bfgs`` and a ``curv`` carry (pass ``res.curv`` back in), the
     projection QP and the ratio test use the damped-BFGS quadratic model;
-    the carry resets when the bounds array was re-indexed between ticks."""
+    the carry resets when the bounds array was re-indexed between ticks.
+
+    ``ls_group`` (the JAX ``ls_axis_name``): a ``torch.distributed``
+    process group over which the line-search lanes are sharded (see
+    :func:`_lane_search` and ``parallel.mesh.alpha_sharded_gait_opt_update``);
+    None runs every lane here."""
     set_fp32_precision()
     dtype, dev = x0_man.dtype, x0_man.device
     B = x0_man.shape[0]
@@ -348,7 +388,7 @@ def gait_opt_update(cfg: MPCConfig, params: SRBParams,
 
     d = contact_time_step(cfg, st1.traj.sched, g, t0, trust=trust_in, Bk=Bk)
     win_alpha, win_obj, cost0 = _lane_search(
-        cfg, params, st1, d, x0_man, t0, ee_pos0, x_des_tan)
+        cfg, params, st1, d, x0_man, t0, ee_pos0, x_des_tan, group=ls_group)
 
     # ratio test on the linear model, with g scaled as the projection QP
     # scaled it

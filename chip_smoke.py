@@ -116,7 +116,22 @@ it on the way:
    (100 ticks at mpc_every=12, so a trailing partial period) graphed by
    ``engine.closed_loop`` against its periods run eagerly, bit for bit;
    torch_batch_sim_demo.py --big at batch 128 (real-time factor, upright
-   count); torch_diag_engine.py at 500 ticks (its trace, finite).
+   count); torch_diag_engine.py at 500 ticks (its trace, finite);
+16. ``parallel/`` (``mesh``, ``multihost`` over ``torch.distributed``) and
+   the four scripts on it: the alpha-sharded gait update at bench width
+   (batch 128, ``ls_alphas=4``) in two ``gloo`` processes that share the
+   card, each solving its half of the lanes ([256, 256, 1280, p=16] a
+   rank), held to the update without a group (alpha equal outside float32
+   ties, cost rtol 1e-3, bounds atol 2e-3), each rank's ``gtwg`` and
+   ``ipm_iter`` calls held to their plain versions and counted; the same
+   function in a one-rank ``nccl`` group, bit for bit; the
+   scenario-sharded closed loop in two processes of 64 scenarios against
+   the unsharded loop (tests/test_parallel.py:171-199's contract), each
+   rank bit for bit its own rerun and the unsharded loop of its 64
+   scenarios; torch_multihost_demo.py on the card; torch_distr_rejection.py
+   at batch 256; torch_bench_sweep.py at batches 128 and 1024 for both QP
+   kernels.  The children are fresh interpreters (``--parallel-rank``),
+   started after this process built the kernels.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -3250,6 +3265,461 @@ def phase_demos(card: str):
     return launches, krows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: parallel/ (the meshes, the alpha-sharded gait update) and the
+# scripts on it
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2            # processes that share the card in 16(a) and (c)
+PAR_LOOP_BATCH = 64      # scenarios a process in 16(c)
+PAR_LOOP = dict(n_ticks=40, control_dt=0.005, mpc_every=20)
+PAR_REJECTION_BATCH = 256                      # 16(e)
+PAR_SWEEP = ((128, 1024), ("xla", "pallas"))   # 16(f): batches, kernels
+TOL_PAR_COST = 1e-3      # tests/test_parallel.py:101-107: cost rtol,
+TOL_PAR_BOUNDS = 2e-3    # bounds atol (alpha equal)
+TOL_PAR_TIE = 1e-5       # relative: two lanes this close are a tie of
+                         # float32 rounding (counted and printed, not gated)
+TOL_PAR_Q = 2e-2         # tests/test_parallel.py:171-199: q over the first
+PAR_Q_TICKS = 10         # 10 ticks, and the z minima
+PAR_Z_MIN = 0.10
+PAR_XY_MAX = 0.25        # tests/test_parallel.py:193: final |x|, |y| [m]
+
+
+def small_config():
+    """tests/test_parallel.py:23-25's configuration."""
+    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
+    return MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
+                     samples_per_stance=4, ee_node_start=1, ipm_iters=8,
+                     init_run_iters=2, max_ls_iters=4, dt=0.05).validate()
+
+
+def parallel_case(device):
+    """Phase 16's inputs, float32.  (a): the bench problem (bench_config(),
+    A1, N=20, ls_alphas=4) at batch 128 after one RTI, with t0 = 0 and the
+    shared x_des [12].  (c): tests/test_parallel.py:171-199's loop, its
+    small configuration, the settled stand, PAR_RANKS x PAR_LOOP_BATCH
+    scenarios with forward velocities in linspace(-0.1, 0.1), a cold
+    solver state."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.control import wbqp
+    from bilevel_gait_gen_tpu_torch.models import a1, rbd, srb
+    from bilevel_gait_gen_tpu_torch.mpc import gait, solver
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    cfg = bench_config()
+    pr = make_problem(cfg, BATCH, device=device, dtype=torch.float32)
+    st, _ = solver.solve_step(cfg, pr.params, pr.states, pr.x0s, pr.t0,
+                              pr.feets, pr.x_des)
+    gait_case = dict(cfg=cfg, params=pr.params, states=st, x0s=pr.x0s,
+                     feets=pr.feets, x_des=pr.x_des[0].clone())
+
+    scfg, B = small_config(), PAR_RANKS * PAR_LOOP_BATCH
+    model = a1.make_a1(device=device)
+    q0 = torch.tensor(a1.stand_config(), device=device).to(torch.float32)
+    params = srb.make_srb_params(model, q0)
+    x0 = srb.reconstruct_state(params, q0, torch.zeros(model.nv,
+                                                       device=device))
+    feet0 = rbd.ee_positions(model, q0)
+    traj = default_trajectory(scfg, gait.make_trot(scfg, dtype=torch.float32,
+                                                   device=device),
+                              x0[None], feet0[None, :, :2])
+    st1 = solver.SolverState(traj=traj, ee_box=torch.tensor(
+        [scfg.ee_box_size], device=device))
+    sim = engine.SimConfig()
+    v0s = torch.zeros(B, model.nv, device=device)
+    v0s[:, 0] = torch.linspace(-0.1, 0.1, B, device=device)
+    loop_case = dict(
+        model=model, params=params, cfg=scfg, wb_cfg=wbqp.WBQPConfig(),
+        sim=sim, states=tree_map(lambda a: a.repeat_interleave(B, 0), st1),
+        q0s=engine.settled_stand(model, sim, q0).repeat(B, 1), v0s=v0s,
+        xds=srb.manifold_to_tangent(x0).repeat(B, 1))
+    return gait_case, loop_case
+
+
+def record_lane_objectives(fn):
+    """``fn()`` with the gait update's lane objectives recorded: (its
+    result, [each ``bilevel._lane_objectives`` call's [B, lanes]])."""
+    from bilevel_gait_gen_tpu_torch.mpc import bilevel
+    inner, seen = bilevel._lane_objectives, []
+
+    def recording(*args, **kw):
+        out = inner(*args, **kw)
+        seen.append(out.detach().clone())
+        return out
+
+    bilevel._lane_objectives = recording
+    try:
+        return fn(), seen
+    finally:
+        bilevel._lane_objectives = inner
+
+
+def parallel_worker(rank: int, d: str) -> int:
+    """One of phase 16's PAR_RANKS processes on the card (``gloo`` on a
+    ``FileStore`` in ``d``; the parent built the kernels).  (a) the
+    alpha-sharded gait update on the {scenario: 1, alpha: PAR_RANKS} mesh:
+    one call with the kernels' counts (and ``ipm_iter``'s count by
+    iteration kernel) set to 0 before and read after, its
+    kernel calls and lane objectives recorded, then one timed call; the
+    recorded calls held to their plain versions, one rank at a time.  (c)
+    the scenario-sharded closed loop on a {scenario: PAR_RANKS} mesh, twice.
+    Writes its local results to ``d``/rank<rank>.pt."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    import torch.distributed as dist
+    from bilevel_gait_gen_tpu_torch.ops import kernel_checks as kc
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.parallel import mesh as mesh_mod
+    from bilevel_gait_gen_tpu_torch.parallel import multihost
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
+    set_fp32_precision()
+    kernels.build()
+    multihost.initialize(f"file://{d}/store", PAR_RANKS, rank,
+                         device=DEVICE, backend="gloo")
+    try:
+        inp = torch.load(f"{d}/inputs.pt", map_location=DEVICE,
+                         weights_only=False)
+        a, lp = inp["gait"], inp["loop"]
+        mesh = mesh_mod.make_mesh((1, PAR_RANKS), ("scenario", "alpha"),
+                                  device=DEVICE)
+        upd = mesh_mod.alpha_sharded_gait_opt_update(a["cfg"], a["params"],
+                                                     mesh)
+        args = (a["states"], a["x0s"], 0.0, a["feets"], a["x_des"])
+        out = {}
+        kernels.reset_launch_counts()
+        calls = kc.record_kernel_calls(lambda: out.update(
+            zip(("res", "lanes"), record_lane_objectives(lambda: upd(
+                *args)))))
+        launches = kernels.launch_counts()
+        by_kernel = dict(kernels.ipm_iter.launches_by_kernel)
+        launches["ipm_iter_handed_kernel"] = by_kernel.get(
+            "ipm_iter_handed_kernel", 0)
+        dist.barrier()
+        _, upd_ms = timed_ms(upd, *args)
+        dist.barrier()
+        rows = []
+        for r in range(PAR_RANKS):
+            if r == rank:
+                rows = kc.check_recorded_calls(calls,
+                                               f"alpha-sharded rank {rank}")
+            dist.barrier()
+
+        mesh1 = mesh_mod.make_mesh((PAR_RANKS,), ("scenario",),
+                                   device=DEVICE)
+        loop = mesh_mod.scenario_sharded_closed_loop(
+            lp["model"], lp["params"], lp["cfg"], lp["wb_cfg"], lp["sim"],
+            mesh1, **PAR_LOOP)
+        largs = (lp["states"], lp["q0s"], lp["v0s"], lp["xds"])
+        runs, loop_ms = [], []
+        for _ in range(2):
+            dist.barrier()
+            run, ms = timed_ms(loop, *largs)
+            runs.append(tree_map(lambda x: x.to_local(), run))
+            loop_ms.append(ms)
+        torch.save(dict(res=tree_map(lambda x: x.to_local(), out["res"]),
+                        lanes=out["lanes"], launches=launches,
+                        by_kernel=by_kernel, rows=rows,
+                        upd_ms=upd_ms, loop=runs, loop_ms=loop_ms),
+                   f"{d}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_workers(gait_case, loop_case) -> list[dict]:
+    """Phase 16's PAR_RANKS processes (``parallel_worker``, each a fresh
+    interpreter: none is forked from this process, where CUDA is up); their
+    output is printed; a process that fails makes the phase raise.  Returns
+    each rank's results."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(dict(gait=gait_case, loop=loop_case), f"{d}/inputs.pt")
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--parallel-rank",
+             str(r), d], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(PAR_RANKS)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, o in enumerate(outs):
+            print("".join(f"[parallel rank {r}] {ln}\n"
+                          for ln in o.splitlines()[-40:]), end="", flush=True)
+        check(all(p.returncode == 0 for p in procs),
+              f"phase 16's processes exited {[p.returncode for p in procs]}")
+        return [torch.load(f"{d}/rank{r}.pt", map_location=DEVICE,
+                           weights_only=False) for r in range(PAR_RANKS)]
+
+
+def lane_ties(lanes) -> np.ndarray:
+    """Scenarios whose two best lane objectives are within TOL_PAR_TIE
+    (relative) of each other."""
+    o = np.sort(lanes.double().cpu().numpy(), axis=1)
+    gap = o[:, 1] - o[:, 0]
+    return np.isfinite(o[:, 1]) & (gap <= TOL_PAR_TIE * np.maximum(
+        1.0, np.abs(o[:, 0])))
+
+
+def check_alpha_sharded(res, ref, ties) -> str:
+    """16(a)'s bounds outside the ties: alpha equal, cost within
+    TOL_PAR_COST (relative), the bounds within TOL_PAR_BOUNDS."""
+    keep = ~ties
+
+    def np_(t):
+        return t.detach().double().cpu().numpy()[keep]
+
+    a, b = np_(res.alpha), np_(ref.alpha)
+    check(np.array_equal(a, b), f"alpha-sharded: alpha differs at "
+          f"{int((a != b).sum())} scenarios (no tie)")
+    c, cr = np_(res.cost), np_(ref.cost)
+    both_inf = np.isinf(c) & np.isinf(cr) & (np.sign(c) == np.sign(cr))
+    dc = np.where(both_inf, 0.0, np.abs(c - cr) / np.maximum(np.abs(cr),
+                                                              1e-30))
+    check(bool((dc <= TOL_PAR_COST).all()),
+          f"alpha-sharded: cost {dc.max():.3e} > {TOL_PAR_COST} (relative)")
+    db = float(np.abs(np_(res.state.traj.sched.bounds)
+                      - np_(ref.state.traj.sched.bounds)).max())
+    check(db <= TOL_PAR_BOUNDS,
+          f"alpha-sharded: bounds {db:.3e} > {TOL_PAR_BOUNDS}")
+    return (f"alpha equal on {int(keep.sum())}, cost {float(dc.max()):.3e} "
+            f"(<= {TOL_PAR_COST}), bounds {db:.3e} (<= {TOL_PAR_BOUNDS})")
+
+
+def check_sharded_loop(loops, ref_log, part_logs) -> str:
+    """16(c): tests/test_parallel.py:171-199's contract on the ranks' first
+    loops put together on the scenario dimension (``loops``: each rank's
+    two runs) against the unsharded loop (``ref_log``): q finite, q over
+    the first PAR_Q_TICKS ticks within TOL_PAR_Q, z above PAR_Z_MIN, the
+    final |x|, |y| below PAR_XY_MAX, every MPC tick solved, and each rank's
+    second run bit for bit its first.  Each rank's loop is also held bit
+    for bit to the unsharded loop of its own PAR_LOOP_BATCH scenarios
+    (``part_logs``, one a rank): its shard is its slice.  The test's
+    scenario-by-scenario tracking of the z minima (within TOL_PAR_Q) is
+    printed, not gated: the loops of PAR_LOOP_BATCH and of PAR_RANKS x
+    PAR_LOOP_BATCH scenarios differ from the first tick on, and which
+    operation's result changes with the batch is not known (no trace has
+    shown it)."""
+    import torch
+    log = [torch.cat(f, dim=1) for f in zip(*(lp[0][1] for lp in loops))]
+    q, cost, solved = (log[i].double().cpu().numpy() for i in (0, 4, 5))
+    qp = ref_log.q.double().cpu().numpy()
+    check(q.shape == qp.shape, f"sharded loop: q {q.shape} for {qp.shape}")
+    check(bool(np.isfinite(q).all()), "sharded loop: q finite")
+    dq = float(np.abs(q[:PAR_Q_TICKS] - qp[:PAR_Q_TICKS]).max())
+    check(dq <= TOL_PAR_Q, f"sharded loop: q over the first {PAR_Q_TICKS} "
+          f"ticks {dq:.3e} from the unsharded > {TOL_PAR_Q}")
+    zmin, zmin_p = q[:, :, 2].min(axis=0), qp[:, :, 2].min(axis=0)
+    check(bool((zmin > PAR_Z_MIN).all()),
+          f"sharded loop: z min {zmin.min():.3f} <= {PAR_Z_MIN}")
+    xy = float(np.abs(q[-1, :, 0:2]).max())
+    check(xy < PAR_XY_MAX,
+          f"sharded loop: final |x|, |y| {xy:.3f} >= {PAR_XY_MAX}")
+    check(bool(solved.astype(bool)[np.isfinite(cost)].all()),
+          "sharded loop: every MPC tick solved")
+    n_out = sum(check_bitwise(lp[1], lp[0], f"sharded loop rank {i} rerun")
+                for i, lp in enumerate(loops))
+    n_part = sum(check_bitwise(lp[0][1], part, f"sharded loop rank {i} "
+                               f"against the unsharded loop of its "
+                               f"scenarios")
+                 for i, (lp, part) in enumerate(zip(loops, part_logs)))
+    dz = float(np.abs(zmin - zmin_p).max())
+    dq_all = np.abs(q - qp).max(axis=(1, 2))
+    first = int(np.argmax(dq_all > 0)) if (dq_all > 0).any() else -1
+    return (f"q over {PAR_Q_TICKS} ticks {dq:.3e} from the unsharded "
+            f"(<= {TOL_PAR_Q}; over all {q.shape[0]} ticks "
+            f"{dq_all.max():.3e}, the first tick that differs {first}), z min "
+            f"{zmin.min():.3f} (> {PAR_Z_MIN}), final |x|, |y| max {xy:.3f} "
+            f"(< {PAR_XY_MAX}), every MPC tick solved; each rank's rerun bit "
+            f"for bit ({n_out} outputs); each rank bit for bit the unsharded "
+            f"loop of its {PAR_LOOP_BATCH} scenarios ({n_part} outputs); not "
+            f"gated: z minima {dz:.3e} from the unsharded's (the test's "
+            f"{TOL_PAR_Q})")
+
+
+def phase_parallel(card: str):
+    """Phase 16: ``parallel/`` on the card and the scripts that stand on it.
+
+    (a) ``mesh.alpha_sharded_gait_opt_update`` at bench width
+        (``bench_config()``, A1, N=20, batch 128, ``ls_alphas=4``, float32)
+        on a {scenario: 1, alpha: 2} mesh of two processes that share the
+        card (``gloo``: NCCL refuses two ranks on one device), eagerly;
+        each rank solves 2 of every scenario's 4 lanes, [256, 256, 1280,
+        p=16].  Held to ``bilevel.gait_opt_update`` without a group on the
+        same card and inputs at tests/test_parallel.py:101-107's bounds
+        (alpha equal, cost rtol 1e-3, bounds atol 2e-3) outside the
+        scenarios whose two best lane objectives are a float32 tie
+        (counted, printed); both ranks' results bit for bit alike; each
+        rank's ``gtwg`` and ``ipm_iter`` calls held to their plain versions
+        (``launches_by_path["alpha_sharded"]``: both ranks' launches in
+        one update, counts set to 0 before and read after).
+    (b) the same function in a one-rank ``nccl`` group (a {1, 1} mesh of
+        this process): bit for bit the update without a group.
+    (c) ``mesh.scenario_sharded_closed_loop``: tests/test_parallel.py:
+        171-199's loop (its small configuration, 40 ticks, mpc_every=20),
+        two processes of 64 scenarios, held to the unsharded loop of 128 by
+        that test's contract (``check_sharded_loop``), each process bit
+        for bit its rerun and the unsharded loop of its 64 scenarios.
+    (d) scripts/torch_multihost_demo.py (two processes on the card):
+        MULTIHOST OK and the same mean cost on both.
+    (e) scripts/torch_distr_rejection.py's default at batch 256, one
+        process: its lines, the plan finite.
+    (f) scripts/torch_bench_sweep.py at batches 128 and 1024 for "xla" and
+        "pallas": its lines.
+    Timings are printed, not gated.  Returns (launches, kernel rows)."""
+    import contextlib
+    import io
+    import torch
+    import torch.distributed as dist
+    from bilevel_gait_gen_tpu_torch.mpc import bilevel
+    from bilevel_gait_gen_tpu_torch.parallel import mesh as mesh_mod
+    from bilevel_gait_gen_tpu_torch.parallel import multihost
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    t_phase = time.perf_counter()
+    gait_case, loop_case = parallel_case(DEVICE)
+    a = gait_case
+    B = a["x0s"].shape[0]
+    t0b = torch.zeros(B, device=DEVICE)
+    xdb = a["x_des"].expand(B, -1).contiguous()
+    (ref, ref_lanes), ref_ms = timed_ms(lambda: record_lane_objectives(
+        lambda: bilevel.gait_opt_update(a["cfg"], a["params"], a["states"],
+                                        a["x0s"], t0b, a["feets"], xdb)))
+    ties = lane_ties(ref_lanes[0])
+
+    # (b) a one-rank nccl group
+    with multihost.one_rank_group(DEVICE):
+        mesh = mesh_mod.make_mesh((1, 1), ("scenario", "alpha"),
+                                  device=DEVICE)
+        one, one_ms = timed_ms(mesh_mod.alpha_sharded_gait_opt_update(
+            a["cfg"], a["params"], mesh), a["states"], a["x0s"], 0.0,
+            a["feets"], a["x_des"])
+        backend = dist.get_backend(mesh["alpha"].get_group())
+        n_one = check_bitwise(tree_map(lambda x: x.to_local(), one), ref,
+                              "alpha-sharded, one-rank group")
+    print(f"[parallel] {card}; (b) one-rank {backend} group, bench width, "
+          f"batch {B}: bit for bit the update without a group on all "
+          f"{n_one} outputs; {one_ms:.0f} ms (without a group, lanes "
+          f"recorded, {ref_ms:.0f} ms)", flush=True)
+
+    # (c)'s references: the unsharded loop of 128, and of each rank's 64
+    lp = loop_case
+
+    def unsharded_loop(lo, hi):
+        return engine.closed_loop(
+            lp["model"], lp["params"], lp["cfg"], lp["wb_cfg"], lp["sim"],
+            tree_map(lambda x: x[lo:hi], lp["states"]), lp["q0s"][lo:hi],
+            lp["v0s"][lo:hi], lp["xds"][lo:hi], **PAR_LOOP)[1]
+
+    ref_log, ref_loop_ms = timed_ms(unsharded_loop, 0,
+                                    PAR_RANKS * PAR_LOOP_BATCH)
+    part_logs, part_ms = zip(*(timed_ms(unsharded_loop, r * PAR_LOOP_BATCH,
+                                        (r + 1) * PAR_LOOP_BATCH)
+                               for r in range(PAR_RANKS)))
+
+    # (a) and (c) in PAR_RANKS processes
+    t_w = time.perf_counter()
+    workers = run_parallel_workers(gait_case, loop_case)
+    w_s = time.perf_counter() - t_w
+    for w in workers[1:]:
+        check_bitwise(w["res"], workers[0]["res"],
+                      "alpha-sharded: the ranks' results")
+    res = workers[0]["res"]
+    sh_lanes = torch.cat([w["lanes"][0] for w in workers], dim=1)
+    fin = torch.isfinite(ref_lanes[0]) & torch.isfinite(sh_lanes)
+    lane_d = float(((sh_lanes - ref_lanes[0]).abs() / ref_lanes[0].abs()
+                    .clamp_min(1.0))[fin].max()) if bool(fin.any()) else 0.0
+    lane_eq = bool(torch.equal(sh_lanes.nan_to_num(), ref_lanes[0]
+                               .nan_to_num()))
+    verdict = check_alpha_sharded(res, ref, ties)
+    check(finite_outputs(res.state.traj, res.grad_norm),
+          "alpha-sharded: the plan finite")
+    launches = {k: sum(w["launches"][k] for w in workers)
+                for k in workers[0]["launches"]}
+    krows = [r for w in workers for r in w["rows"]]
+    for name in ("gtwg", "ipm_iter"):
+        check(all(w["launches"][name] > 0 for w in workers),
+              f"alpha-sharded: every rank launched {name}")
+        check(any(r["kernel"] == name and r["shape"][0] == 2 * B
+                  for r in krows),
+              f"alpha-sharded: {name} held to its plain version at the "
+              f"lanes' batch {2 * B}")
+    # p = 16 equality rows: every sweep through ipm_iter_kernel
+    check(all(w["by_kernel"] == {"ipm_iter_kernel": w["launches"]["ipm_iter"],
+                                 "ipm_iter_handed_kernel": 0}
+              for w in workers),
+          f"alpha-sharded: every sweep through ipm_iter_kernel: "
+          f"{[w['by_kernel'] for w in workers]}")
+    ties_at = np.flatnonzero(ties).tolist()
+    alpha_ne = np.flatnonzero(res.alpha.cpu().numpy()
+                              != ref.alpha.cpu().numpy()).tolist()
+    print(f"[parallel] (a) alpha-sharded gait update, {PAR_RANKS} gloo "
+          f"processes on the card, mesh (1, {PAR_RANKS}), batch {B}, lanes "
+          f"[{2 * B}, 256, 1280, p=16] a rank: {verdict}; float32 ties "
+          f"(two best lanes within {TOL_PAR_TIE} relative) at {ties_at}, "
+          f"alpha differs at {alpha_ne}; lane objectives "
+          f"{'bit for bit' if lane_eq else f'max {lane_d:.3e} relative'} "
+          f"from the unsharded; eager ms per rank "
+          f"{[round(w['upd_ms'], 1) for w in workers]} (unsharded, lanes "
+          f"recorded, {ref_ms:.1f}); launches {launches}; the processes "
+          f"{w_s:.1f} s", flush=True)
+
+    verdict = check_sharded_loop([w["loop"] for w in workers], ref_log,
+                                 part_logs)
+    print(f"[parallel] (c) scenario-sharded closed loop, {PAR_RANKS} x "
+          f"{PAR_LOOP_BATCH} scenarios, {PAR_LOOP['n_ticks']} ticks, "
+          f"mpc_every={PAR_LOOP['mpc_every']}: {verdict}; ms per rank and "
+          f"run {[[round(x) for x in w['loop_ms']] for w in workers]} "
+          f"(captures included), unsharded batch "
+          f"{PAR_RANKS * PAR_LOOP_BATCH} {ref_loop_ms:.0f} ms, batch "
+          f"{PAR_LOOP_BATCH} {[round(x) for x in part_ms]} ms", flush=True)
+
+    # (d) the multihost demo
+    demo = load_script("torch_multihost_demo")
+    buf = io.StringIO()
+    t_d = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = demo.main([])
+    out = buf.getvalue()
+    means = {ln.split("mean cost ")[1].split(",")[0]
+             for ln in out.splitlines() if "mean cost" in ln}
+    check(code == 0 and "MULTIHOST OK" in out and len(means) == 1
+          and out.count("mean cost") == 2,
+          f"torch_multihost_demo on the card:\n{out}")
+    print(f"[parallel] (d) torch_multihost_demo: MULTIHOST OK, mean cost "
+          f"{means.pop()} on both ranks; {time.perf_counter() - t_d:.1f} s",
+          flush=True)
+
+    # (e) distr_rejection's default
+    dr = load_script("torch_distr_rejection")
+    t_e = time.perf_counter()
+    run = dr.plan(dr.setup(PAR_REJECTION_BATCH, DEVICE), DEVICE)
+    nums = dr.report(run)
+    check(finite_outputs(run["states2"].traj),
+          "torch_distr_rejection: the plan finite")
+    print(f"[parallel] (e) torch_distr_rejection batch "
+          f"{PAR_REJECTION_BATCH}: first call "
+          f"(capture included) {run['t_first'] * 1e3:.0f} ms, steady "
+          f"{run['t_steady'] * 1e3:.1f} ms, solved {nums['solved']:.4f}; "
+          f"{time.perf_counter() - t_e:.1f} s", flush=True)
+
+    # (f) bench_sweep
+    bs = load_script("torch_bench_sweep")
+    t_f = time.perf_counter()
+    pts = [bs.run(b, k, DEVICE) for k in PAR_SWEEP[1] for b in PAR_SWEEP[0]]
+    print(f"[parallel] (f) torch_bench_sweep: "
+          + "; ".join(f"{p['kernel']} {p['batch']}: {p['latency_ms']:.2f} "
+                      f"ms, solved {p['solved']:.3f}" for p in pts)
+          + f"; {time.perf_counter() - t_f:.1f} s", flush=True)
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, krows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     sys.path.insert(0, str(REPO))
@@ -3275,6 +3745,7 @@ def main() -> int:
     golden_launches, golden_rows = phase_golden(card)
     clh_launches, clh_rows = phase_closed_loop_harness(card)
     demo_launches, demo_rows = phase_demos(card)
+    par_launches, par_rows = phase_parallel(card)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
     # chol_inverse from the centroidal RTI (phase 9); every path's counts are
@@ -3290,12 +3761,15 @@ def main() -> int:
                 "centroidal_rti": cent_launches[name],
                 "golden_rollout": 0,
                 "closed_loop_harness": clh_launches[name],
-                "demos": demo_launches[name]}
+                "demos": demo_launches[name],
+                "alpha_sharded": par_launches[name]}
             row["golden_rollout_checks"] = []
             row["closed_loop_harness_checks"] = [
                 r for r in clh_rows if r["kernel"] == name]
             row["demos_checks"] = [r for r in demo_rows
                                    if r["kernel"] == name]
+            row["alpha_sharded_checks"] = [r for r in par_rows
+                                           if r["kernel"] == name]
             continue
         path = (launches if name in launches else
                 gj_launches if name in gj_launches else cent_launches)
@@ -3310,7 +3784,8 @@ def main() -> int:
                                    "hardware_loop": hw_launches[name],
                                    "golden_rollout": golden_launches[name],
                                    "closed_loop_harness": clh_launches[name],
-                                   "demos": demo_launches[name]}
+                                   "demos": demo_launches[name],
+                                   "alpha_sharded": par_launches[name]}
         row["closed_loop_checks"] = [r for r in loop_rows
                                      if r["kernel"] == name]
         row["centroidal_checks"] = [r for r in cent_rows
@@ -3323,6 +3798,8 @@ def main() -> int:
         row["closed_loop_harness_checks"] = [r for r in clh_rows
                                              if r["kernel"] == name]
         row["demos_checks"] = [r for r in demo_rows if r["kernel"] == name]
+        row["alpha_sharded_checks"] = [r for r in par_rows
+                                       if r["kernel"] == name]
         if name == "gj_inverse":
             row["launches_by_form"] = gj_forms
     print(f"[paths] centroidal step ms {json.dumps(cent_ms)}; ADMM block ms "
@@ -3336,4 +3813,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -54,6 +54,9 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.utils.timing",
     "bilevel_gait_gen_tpu_torch.utils.checkpoint",
     "bilevel_gait_gen_tpu_torch.sim.viz",
+    "bilevel_gait_gen_tpu_torch.parallel.mesh",
+    "bilevel_gait_gen_tpu_torch.parallel.multihost",
+    "bilevel_gait_gen_tpu_torch.utils.collectives",
     "chip_smoke",
     "bench_torch",
 ])
@@ -62,6 +65,17 @@ def test_port_never_imports_jax(module):
     code = (f"import {module}, sys; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'bilevel_gait_gen_tpu')); assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_solver_layer_loads_no_mesh_code():
+    """``mpc.bilevel`` gathers its lanes through ``utils.collectives``: it
+    loads neither ``parallel/`` nor the DTensor modules."""
+    code = ("import bilevel_gait_gen_tpu_torch.mpc.bilevel, sys; "
+            "bad = sorted(m for m in sys.modules if m.startswith(("
+            "'bilevel_gait_gen_tpu_torch.parallel', "
+            "'torch.distributed.tensor'))); "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
@@ -322,7 +336,16 @@ def _entry_points():
         "torch_run_mujoco_walk.configure": lambda **k: script(
             "torch_run_mujoco_walk").configure([], k.get("device"))[
             "model"].mass,
+        "make_mesh": _mesh_device,
     }
+
+
+def _mesh_device(device=None):
+    """An empty tensor on the device type of ``parallel.mesh.make_mesh``'s
+    mesh, in a one-rank group of that device's backend."""
+    from bilevel_gait_gen_tpu_torch.parallel import mesh, multihost
+    with multihost.one_rank_group(device):
+        return torch.empty(0, device=mesh.make_mesh(device=device).device_type)
 
 
 def _jax_centroidal_state():
@@ -346,7 +369,8 @@ def _jax_centroidal_state():
                                   "torch_batch_sim_demo.setup",
                                   "torch_diag_engine.setup",
                                   "torch_hardware_sim_demo.setup",
-                                  "torch_run_mujoco_walk.configure"])
+                                  "torch_run_mujoco_walk.configure",
+                                  "make_mesh"])
 def test_entry_points_default_to_the_gpu_and_take_the_cpu_on_request(name):
     """device=None means the CUDA device: without one the entry point
     raises and says so (nothing carries on on the CPU unasked); with
