@@ -21,6 +21,10 @@ def _damped_pinv_apply(J: torch.Tensor, r: torch.Tensor,
     """J^T (J J^T + damping I)^-1 r for J [..., k, n], r [..., k]."""
     eye = torch.eye(J.shape[-2], dtype=J.dtype, device=J.device)
     JJt = J @ J.mT + damping * eye
+    # cuBLAS's batched GEMV, whose kernel changes with the batch count, kept
+    # on purpose: the batch-invariant form (utils/jnp_compat.matvec) moves
+    # the centroidal RTI's IK, and chip_smoke.py phase 9's kernel check on
+    # it past its cap (PERF.md §6)
     return (J.mT @ spd_solve(JJt, r)[..., None])[..., 0]
 
 

@@ -58,6 +58,17 @@ def compute_torques(model: RobotModel, cfg: WBQPConfig, q: torch.Tensor,
     q [B, nq], v [B, nv]; contact [B, E] bool, scheduled AND measured (the
     stationary-contact rows of a foot apply only when both hold); q_des,
     v_des the IK targets; f_des [B, E, 3] the MPC force targets."""
+    return torques_and_sweeps(model, cfg, q, v, contact, q_des, v_des,
+                              f_des)[0]
+
+
+def torques_and_sweeps(model: RobotModel, cfg: WBQPConfig, q: torch.Tensor,
+                       v: torch.Tensor, contact: torch.Tensor,
+                       q_des: torch.Tensor, v_des: torch.Tensor,
+                       f_des: torch.Tensor):
+    """:func:`compute_torques` with the QP's sweeps: (tau [B, nj], the
+    interior-point sweeps taken [B], ``cfg.ipm_iters`` where it stopped on
+    its cap)."""
     set_fp32_precision()
     nv, nj, E = model.nv, model.num_joints, model.num_ee
     dtype, dev = q.dtype, q.device
@@ -126,7 +137,7 @@ def compute_torques(model: RobotModel, cfg: WBQPConfig, q: torch.Tensor,
     # torque recovery by inverse dynamics
     tau = ((M[:, 6:] @ qdd[..., None])[..., 0] + h[:, 6:]
            - torch.einsum('beiv,bei->bv', J[..., 6:], lam))
-    return torch.clamp(tau, -tb, tb)
+    return torch.clamp(tau, -tb, tb), sol.iters
 
 
 def pd_grav_comp(model: RobotModel, q: torch.Tensor, v: torch.Tensor,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
+from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 from bilevel_gait_gen_tpu_torch.utils.consts import const
 
 GRAVITY = (0.0, 0.0, -9.81)
@@ -416,8 +417,8 @@ def _dynamics(model: RobotModel, Rs, ps, v, products):
     a_c = _point_accelerations(w, alpha, acc, ps, coms)
     force = model.mass.to(dtype)[:, None] * (a_c - const(GRAVITY, dtype,
                                                          v.device))
-    Iw_w = (Iw @ w[..., None])[..., 0]
-    torque = (Iw @ alpha[..., None])[..., 0] + torch.linalg.cross(w, Iw_w)
+    Iw_w = jc.matvec(Iw, w)
+    torque = jc.matvec(Iw, alpha) + torch.linalg.cross(w, Iw_w)
     h = (torch.einsum('...liv,...li->...v', Jc, force)
          + torch.einsum('...liv,...li->...v', Jw, torque))
     # the Lagrangian identity's h lacks omega x dT/domega on the base rows

@@ -16,6 +16,7 @@ from bilevel_gait_gen_tpu_torch.models import rbd
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
 from bilevel_gait_gen_tpu_torch.ops import spline
+from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch.utils.consts import const
 
@@ -61,7 +62,7 @@ def make_srb_params(model: RobotModel, nominal_q: torch.Tensor,
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """M [3, 3] times v [..., 3]."""
-    return (M @ v[..., None])[..., 0]
+    return jc.matvec(M, v)
 
 
 def reconstruct_state(params: SRBParams, q: torch.Tensor,

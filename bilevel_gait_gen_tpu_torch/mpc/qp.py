@@ -23,6 +23,7 @@ from bilevel_gait_gen_tpu_torch.mpc import gait as gait_mod
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import Trajectory, ravel_u
 from bilevel_gait_gen_tpu_torch.ops import quat as quat_ops
 from bilevel_gait_gen_tpu_torch.ops import spline
+from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch.utils.consts import const
 
@@ -501,7 +502,8 @@ def _assemble_ad_one(cfg, params, x_man, f_nodes, footholds, bounds, x0_man,
 
 def recover_states(qp: CondensedQP, u: torch.Tensor) -> torch.Tensor:
     """[B, N+1, 12] tangent states implied by the QP solution u [B, n_u]."""
-    return torch.einsum('bkiu,bu->bki', qp.S, u) + qp.c
+    S = qp.S.flatten(-3, -2)                                  # [B, K 12, n_u]
+    return jc.matvec(S, u).unflatten(-1, qp.S.shape[-3:-1]) + qp.c
 
 
 def cost_value(cfg: MPCConfig, xs_tan: torch.Tensor, u: torch.Tensor,

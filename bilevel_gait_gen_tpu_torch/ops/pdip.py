@@ -33,6 +33,7 @@ from typing import Callable
 import torch
 
 from bilevel_gait_gen_tpu_torch.ops import kernels
+from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,12 +50,14 @@ class QPSolution:
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched M @ v: [B, r, c] x [B, c] -> [B, r]."""
-    return (M @ v[..., None])[..., 0]
+    return jc.matvec(M, v)
 
 
-def _vtm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    """Batched M^T @ v: [B, r] x [B, r, c] -> [B, c]."""
-    return (v[..., None, :] @ M)[..., 0, :]
+def _vtm(v: torch.Tensor, M: torch.Tensor,
+         Mt: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched M^T @ v: [B, r] x [B, r, c] -> [B, c] (``Mt``: M's
+    ``jnp_compat.transposed``, made once a solve)."""
+    return jc.vecmat(v, M, Mt)
 
 
 def _amax_abs(v: torch.Tensor) -> torch.Tensor:
@@ -164,20 +167,20 @@ def _ns_refresh(X: torch.Tensor, M: torch.Tensor, steps: int = 2):
     return X
 
 
-def _kkt_solve(Mi, A, Si, r1, r2):
+def _kkt_solve(Mi, A, Si, r1, r2, At=None):
     """Solve [[M, A^T], [A, 0]] [dx, dy] = [r1, r2] given M^-1, S^-1."""
     Mi_r1 = _mv(Mi, r1)
     dy = _mv(Si, _mv(A, Mi_r1) - r2)
-    dx = Mi_r1 - _mv(Mi, _vtm(dy, A))
+    dx = Mi_r1 - _mv(Mi, _vtm(dy, A, At))
     return dx, dy
 
 
-def _refine(Mi, A, Si, M, r1, r2, dx, dy, steps: int = 1):
+def _refine(Mi, A, Si, M, r1, r2, dx, dy, steps: int = 1, At=None):
     """Iterative refinement of the KKT solve."""
     for _ in range(steps):
-        e1 = r1 - (_mv(M, dx) + _vtm(dy, A))
+        e1 = r1 - (_mv(M, dx) + _vtm(dy, A, At))
         e2 = r2 - _mv(A, dx)
-        cx, cy = _kkt_solve(Mi, A, Si, e1, e2)
+        cx, cy = _kkt_solve(Mi, A, Si, e1, e2, At)
         dx = dx + cx
         dy = dy + cy
     return dx, dy
@@ -185,13 +188,14 @@ def _refine(Mi, A, Si, M, r1, r2, dx, dy, steps: int = 1):
 
 def _iteration_math(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
                     M, Mi, *, reg: float, tol: float, refine_steps: int,
-                    chol_inverse_fn: Callable):
+                    chol_inverse_fn: Callable, At=None, Gt=None):
     """One Mehrotra predictor-corrector iteration once M^-1 is known.
 
     Shared by the unrolled path and ``kernels.ipm_iter_reference`` (the
     plain version of the fused CUDA sweep), as the JAX package shares it
     between XLA and the Pallas kernel.  ``done`` is bool [B], ``it`` int32
-    [B], ``best`` = (x, y, lam, s, merit [B])."""
+    [B], ``best`` = (x, y, lam, s, merit [B]); ``At``, ``Gt``: A's and G's
+    ``jnp_compat.transposed``, which a solve makes once for its sweeps."""
     dtype = q.dtype
     eps = torch.finfo(dtype).eps
     w_hi = 0.01 / eps
@@ -201,20 +205,20 @@ def _iteration_math(H, q, A, b, G, h, g_active, x, y, lam, s, done, it, best,
     W = torch.clamp(lam / s, 1.0 / w_hi, w_hi)
 
     AMi = A @ Mi
-    S_mat = AMi @ A.mT + max(reg, 1e-7) * _eye(p, q)
+    S_mat = jc.matmul_nt(AMi, A) + max(reg, 1e-7) * _eye(p, q)
     Si = chol_inverse_fn(S_mat)
 
-    r_d = _mv(H, x) + q + _vtm(y, A) + _vtm(lam, G)
+    r_d = _mv(H, x) + q + _vtm(y, A, At) + _vtm(lam, G, Gt)
     r_p = _mv(A, x) - b
     r_g = _mv(G, x) + s - h
     mu = torch.sum(s * lam, dim=-1) / m_act
 
     def solve_dir(sigma_mu, ds_extra):
         rhs_c = (sigma_mu[..., None] - lam * ds_extra) / s
-        r1 = -(r_d + _vtm(rhs_c - lam + W * r_g, G))
+        r1 = -(r_d + _vtm(rhs_c - lam + W * r_g, G, Gt))
         r2 = -r_p
-        dx, dy = _kkt_solve(Mi, A, Si, r1, r2)
-        dx, dy = _refine(Mi, A, Si, M, r1, r2, dx, dy, refine_steps)
+        dx, dy = _kkt_solve(Mi, A, Si, r1, r2, At)
+        dx, dy = _refine(Mi, A, Si, M, r1, r2, dx, dy, refine_steps, At)
         ds = -r_g - _mv(G, dx)
         dlam = rhs_c - lam - W * ds
         return dx, dy, ds, dlam
@@ -321,7 +325,8 @@ def solve(H, q, A, b, G, h, *, iters: int = 25, tol: float = 1e-9,
                       pri_res=pri, dua_res=dua)
 
 
-def _residuals(H, q, A, b, G, h, x, y, lam, s, g_active=None):
+def _residuals(H, q, A, b, G, h, x, y, lam, s, g_active=None, At=None,
+               Gt=None):
     """(gap, primal, dual) residuals; masked G rows do not count."""
     if g_active is None:
         g_active = torch.any(G != 0, dim=-1)
@@ -333,7 +338,7 @@ def _residuals(H, q, A, b, G, h, x, y, lam, s, g_active=None):
         pri = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     r_g = _mv(G, x) + s - h
     pri = torch.maximum(pri, _amax_abs(torch.where(g_active, r_g, 0.0)))
-    dua = _amax_abs(_mv(H, x) + q + _vtm(y, A) + _vtm(lam, G))
+    dua = _amax_abs(_mv(H, x) + q + _vtm(y, A, At) + _vtm(lam, G, Gt))
     return gap, pri, dua
 
 
@@ -390,6 +395,7 @@ def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
 
     g_active = torch.any(G != 0, dim=-1)
     one = torch.ones((), dtype=dtype, device=dev)
+    At, Gt = jc.transposed(A), jc.transposed(G)
 
     # Mehrotra start: the equality-constrained QP, then slacks/duals pushed
     # strictly interior.  ``inverse`` selects the start point's inverse and
@@ -399,7 +405,7 @@ def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
     Mi0 = inv(H + max(reg, 1e-8) * _eye(n, q))
     S0 = A @ (Mi0 @ A.mT) + max(reg, 1e-7) * _eye(p, q)
     Si0 = _chol_inverse(S0)
-    x, y = _kkt_solve(Mi0, A, Si0, -q, b)
+    x, y = _kkt_solve(Mi0, A, Si0, -q, b, At)
     s_raw = h - _mv(G, x)
     s_floor = 0.1 * (1.0 + _amax_abs(h))
     s = torch.where(g_active, torch.maximum(s_raw, s_floor[..., None]), one)
@@ -454,21 +460,21 @@ def _solve_impl(H, q, A, b, G, h, *, iters, tol, reg, refine_steps,
             x, y, lam, s, done, it, best = _iteration_math(
                 H, q, A, b, G, h, g_active_f, x, y, lam, s, done, it, best,
                 M, Mi, reg=reg, tol=tol, refine_steps=refine_steps,
-                chol_inverse_fn=_chol_inverse)
+                chol_inverse_fn=_chol_inverse, At=At, Gt=Gt)
         Mi_prev = Mi
     return _finalize(H, q, A, b, G, h, g_active, x, y, lam, s, it, best,
-                     n_real, m_real)
+                     n_real, m_real, At, Gt)
 
 
 def _finalize(H, q, A, b, G, h, g_active, x, y, lam, s, it, best,
-              n_real: int, m_real: int) -> QPSolution:
+              n_real: int, m_real: int, At=None, Gt=None) -> QPSolution:
     """Best-iterate competition, final residuals, padding stripped."""
     m_act = torch.clamp_min(torch.sum(g_active, dim=-1), 1).to(x.dtype)
 
     def merit_of(x_, y_, lam_, s_):
         mu_ = torch.sum(s_ * lam_, dim=-1) / m_act
         rp_ = _amax_abs(_mv(A, x_) - b)
-        rd_ = _amax_abs(_mv(H, x_) + q + _vtm(y_, A) + _vtm(lam_, G))
+        rd_ = _amax_abs(_mv(H, x_) + q + _vtm(y_, A, At) + _vtm(lam_, G, Gt))
         sc = 1.0 + _amax_abs(q)
         return mu_ + rp_ / sc + rd_ / sc
 
@@ -478,7 +484,8 @@ def _finalize(H, q, A, b, G, h, g_active, x, y, lam, s, it, best,
     y = torch.where(take_final, y, by)
     lam = torch.where(take_final, lam, blam)
     s = torch.where(take_final, s, bs)
-    gap, pri, dua = _residuals(H, q, A, b, G, h, x, y, lam, s, g_active)
+    gap, pri, dua = _residuals(H, q, A, b, G, h, x, y, lam, s, g_active, At,
+                               Gt)
     return QPSolution(x=x[..., :n_real], y=y, lam=lam[..., :m_real],
                       s=s[..., :m_real], iters=it, gap=gap, pri_res=pri,
                       dua_res=dua)

@@ -19,18 +19,20 @@ graphs' carry.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from bilevel_gait_gen_tpu_torch.control import ik as ik_mod
 from bilevel_gait_gen_tpu_torch.control import mpc_controller, wbqp
+from bilevel_gait_gen_tpu_torch.control.mpc_controller import plain_call
 from bilevel_gait_gen_tpu_torch.models import rbd, srb
 from bilevel_gait_gen_tpu_torch.models.rbd import RobotModel
 from bilevel_gait_gen_tpu_torch.mpc import bilevel as bilevel_mod
 from bilevel_gait_gen_tpu_torch.mpc import gait as gait_mod
 from bilevel_gait_gen_tpu_torch.mpc import solver as solver_mod
 from bilevel_gait_gen_tpu_torch.ops.pdip import spd_solve
+from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
 from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch.utils.consts import const
 from bilevel_gait_gen_tpu_torch.utils.graphs import Graphed, tree_map
@@ -98,8 +100,9 @@ def physics_step(model: RobotModel, sim: SimConfig, q: torch.Tensor,
     tau_full = torch.cat([torch.zeros_like(v[..., :6]), tau], dim=-1)
     damping = const((0.0,) * 6 + (sim.joint_damping,) * model.num_joints,
                     v.dtype, v.device)
+    E = J.shape[-3]
     rhs = (tau_full - h - damping * v
-           + torch.einsum('...eiv,...ei->...v', J, f_c))
+           + jc.vecmat(f_c.flatten(-2), J.reshape(*J.shape[:-3], 3 * E, -1)))
     qdd = spd_solve(M, rhs)
     v_new = v + dt * qdd
     return rbd.integrate_config(q, dt * v_new), v_new
@@ -150,12 +153,16 @@ def is_gait_period(index: int, gait_opt_every: int) -> bool:
 def mpc_update(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
                ls: LoopState, t: torch.Tensor, x_des_tan: torch.Tensor,
                feet: torch.Tensor, mc: torch.Tensor, *, gait: bool,
-               contact_sync: bool):
+               contact_sync: bool, call: Callable = plain_call):
     """The MPC update of a period's first tick at time t [B] from the
     loop's state, the measured feet [B, E, 3] and the latched contact
     mc [B, E]: an RTI, or the gait update (which embeds the RTI).  Returns
-    (state, the RTI's SolveStats (each [B]), trust [B])."""
-    x_srb = mpc_controller.reconstruct_srb_state(model, params, ls.q, ls.v)
+    (state, the RTI's SolveStats (each [B]), trust [B]).  ``call``: the
+    stage hook (``mpc_controller.plain_call``) of the SRB state and of the
+    RTI or the gait update."""
+    x_srb = call("srb_state", lambda q, v:
+                 mpc_controller.reconstruct_srb_state(model, params, q, v),
+                 ls.q, ls.v)
     st = ls.st
     if contact_sync:
         # early-touchdown schedule sync, fed by the latched contact state
@@ -164,11 +171,13 @@ def mpc_update(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
         st = dataclasses.replace(st, traj=dataclasses.replace(st.traj,
                                                               sched=sched))
     if gait:
-        res = bilevel_mod.gait_opt_update(cfg, params, st, x_srb, t, feet,
-                                          x_des_tan, trust=ls.trust)
+        res = call("gait_opt_update", lambda st, x, t, f, xd, tr:
+                   bilevel_mod.gait_opt_update(cfg, params, st, x, t, f, xd,
+                                               trust=tr),
+                   st, x_srb, t, feet, x_des_tan, ls.trust)
         return res.state, res.rti_stats, res.trust
-    st2, stats = solver_mod.solve_step(cfg, params, st, x_srb, t, feet,
-                                       x_des_tan)
+    st2, stats = call("rti", lambda st, x, t, f, xd: solver_mod.solve_step(
+        cfg, params, st, x, t, f, xd), st, x_srb, t, feet, x_des_tan)
     return st2, stats, ls.trust
 
 
@@ -186,37 +195,48 @@ def control_tick(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
                  wb_cfg: wbqp.WBQPConfig, sim: SimConfig,
                  st: solver_mod.SolverState, q: torch.Tensor,
                  v: torch.Tensor, t: torch.Tensor, t0: torch.Tensor,
-                 mc: torch.Tensor, *, control_dt: float):
+                 mc: torch.Tensor, *, control_dt: float,
+                 call: Callable = plain_call):
     """One control tick after the MPC update: the torque QP on the MPC
     state ``st`` at time t [B], then ``sim.substeps`` physics steps.
-    Returns (q, v, tau)."""
+    Returns (q, v, tau).  ``call``: the stage hook of the controller's
+    stages and of each physics step ("physics_1", ...)."""
     tau = mpc_controller.control_action(model, params, cfg, wb_cfg, st.traj,
-                                        q, v, t, t0, mc)
-    for _ in range(sim.substeps):
-        q, v = physics_step(model, sim, q, v, tau, control_dt / sim.substeps)
+                                        q, v, t, t0, mc, call=call)
+    dt = control_dt / sim.substeps
+    for k in range(sim.substeps):
+        q, v = call(f"physics_{k + 1}", lambda q, v, tau: physics_step(
+            model, sim, q, v, tau, dt), q, v, tau)
     return q, v, tau
 
 
 def period(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
            wb_cfg: wbqp.WBQPConfig, sim: SimConfig, x_des_tan: torch.Tensor,
            ls: LoopState, *, control_dt: float, ticks: int, gait: bool,
-           contact_sync: bool) -> tuple[LoopState, SimLog]:
+           contact_sync: bool, call: Callable = plain_call
+           ) -> tuple[LoopState, SimLog]:
     """One MPC period of ``ticks`` ticks from ``ls``: the MPC update (the
     gait update if ``gait``) on the first, and on every tick the contact
     latch and a :func:`control_tick`.  Returns the state after the period
-    and its log, fields [ticks, B, ...]."""
+    and its log, fields [ticks, B, ...].  ``call``: the stage hook
+    (``mpc_controller.plain_call``) through which every stage of a tick
+    runs, in order: "ee_positions", "latch_contact", on the first tick
+    "srb_state" and "rti" or "gait_opt_update", then the controller's
+    stages (``mpc_controller.control_action_full``) and "physics_1" to
+    "physics_<substeps>"."""
     set_fp32_precision()
     q, v, st, t0, mc, trust = ls.q, ls.v, ls.st, ls.t0, ls.mc, ls.trust
     B, dtype = q.shape[0], q.dtype
     logs = []
     for j in range(ticks):
         t = ((ls.tick + j).to(dtype) * control_dt).expand(B)
-        feet = rbd.ee_positions(model, q)
-        mc = latch_contact(sim, feet, mc)
+        feet = call("ee_positions", lambda q: rbd.ee_positions(model, q), q)
+        mc = call("latch_contact", lambda f, c: latch_contact(sim, f, c),
+                  feet, mc)
         if j == 0:
             st, stats, trust = mpc_update(
                 model, params, cfg, ls, t, x_des_tan, feet, mc, gait=gait,
-                contact_sync=contact_sync)
+                contact_sync=contact_sync, call=call)
             cost, solved = stats.cost, stats.solved
             t0 = t
         else:
@@ -224,7 +244,7 @@ def period(model: RobotModel, params: srb.SRBParams, cfg: MPCConfig,
                               device=q.device)
             solved = torch.ones(B, dtype=torch.bool, device=q.device)
         q, v, tau = control_tick(model, params, cfg, wb_cfg, sim, st, q, v,
-                                 t, t0, mc, control_dt=control_dt)
+                                 t, t0, mc, control_dt=control_dt, call=call)
         x_srb = mpc_controller.reconstruct_srb_state(model, params, q, v)
         logs.append(SimLog(q=q, v=v, srb_state=x_srb, tau=tau, cost=cost,
                            solved=solved))

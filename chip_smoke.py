@@ -116,7 +116,7 @@ it on the way:
    (100 ticks at mpc_every=12, so a trailing partial period) graphed by
    ``engine.closed_loop`` against its periods run eagerly, bit for bit;
    torch_batch_sim_demo.py --big at batch 128 (real-time factor, upright
-   count); torch_diag_engine.py at 500 ticks (its trace, finite);
+   count); torch_diag_engine.py at 250 ticks (its trace, finite);
 16. ``parallel/`` (``mesh``, ``multihost`` over ``torch.distributed``) and
    the four scripts on it: the alpha-sharded gait update at bench width
    (batch 128, ``ls_alphas=4``) in two ``gloo`` processes that share the
@@ -129,9 +129,22 @@ it on the way:
    the unsharded loop (tests/test_parallel.py:171-199's contract), each
    rank bit for bit its own rerun and the unsharded loop of its 64
    scenarios; torch_multihost_demo.py on the card; torch_distr_rejection.py
-   at batch 256; torch_bench_sweep.py at batches 128 and 1024 for both QP
+   at batch 128; torch_bench_sweep.py at batch 128 for both QP
    kernels.  The children are fresh interpreters (``--parallel-rank``),
-   started after this process built the kernels.
+   started after this process built the kernels;
+17. one scenario's result at two batches (``sim/batch_invariance``): the
+   stages of 16(c)'s loop at each MPC tick (``engine.period``'s stage hook:
+   the contact latch, the RTI, the gait update on the first tick's inputs,
+   the targets, the IK, the feet's motion, the base's velocity, the IK's
+   velocities, the torque QP, the physics substeps) at 128 scenarios and at
+   64, for each half of the 128, each stage of the 128 run fed the 64 run's
+   inputs; the operations whose inputs agree and outputs do not, with their
+   lines and the kernels ``torch.profiler`` shows at each batch; for each
+   half, where 16(c)'s loops of 64 and 128 part and what flipped there (the
+   loops again eagerly with their discrete choices); one RTI at bench width
+   at batches 1, 8, 64 and 128; the loop's z minima moved by the remaining
+   difference (the IK's product, left on cuBLAS).  Every stage bit for bit
+   but the IK's two, and kernel names for every differing operation.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -3078,8 +3091,10 @@ def phase_closed_loop_harness(card: str):
 # phase 15: the demos
 # ---------------------------------------------------------------------------
 
-DEMO_BIG = ["128", "100", "--big"]   # batch_sim_demo --big: 2 periods of 50
-DEMO_DIAG_TICKS = 500                # diag_engine: 10 periods of 50
+DEMO_BIG = ["128", "50", "--big"]    # batch_sim_demo --big: 1 period of 50
+DEMO_DIAG_TICKS = 250                # diag_engine: 5 periods of 50 (cut from
+                                     # 2 and 10 periods to keep the script
+                                     # near 800 s)
 
 
 def load_script(name: str):
@@ -3148,10 +3163,10 @@ def phase_demos(card: str):
         16, 100 ticks, mpc_every=12: 8 periods and a trailing one of 4
         ticks), graphed by ``engine.closed_loop``, against the same periods
         run eagerly on the card, bit for bit.
-    (c) scripts/torch_batch_sim_demo.py --big at batch 128, 100 ticks: one
+    (c) scripts/torch_batch_sim_demo.py --big at batch 128, 50 ticks: one
         run (its graph captured in it), the aggregate real-time factor and
         the upright count; the plan and the rollout finite.
-    (d) scripts/torch_diag_engine.py at 500 ticks: its trace; the plan
+    (d) scripts/torch_diag_engine.py at 250 ticks: its trace; the plan
         and the rollout (q, v, tau) finite.
     Returns (launches, kernel rows)."""
     import torch
@@ -3249,7 +3264,7 @@ def phase_demos(card: str):
           f"z final mean {float(z[-1].mean()):.3f}; "
           f"{time.perf_counter() - t_c:.1f} s", flush=True)
 
-    # (d) diag_engine at 500 ticks
+    # (d) diag_engine at DEMO_DIAG_TICKS ticks
     t_d = time.perf_counter()
     st_d, log_d = diag.probe(DEMO_DIAG_TICKS, DEVICE)
     check(finite_outputs(st_d.traj, log_d.q, log_d.v, log_d.tau),
@@ -3273,8 +3288,9 @@ def phase_demos(card: str):
 PAR_RANKS = 2            # processes that share the card in 16(a) and (c)
 PAR_LOOP_BATCH = 64      # scenarios a process in 16(c)
 PAR_LOOP = dict(n_ticks=40, control_dt=0.005, mpc_every=20)
-PAR_REJECTION_BATCH = 256                      # 16(e)
-PAR_SWEEP = ((128, 1024), ("xla", "pallas"))   # 16(f): batches, kernels
+PAR_REJECTION_BATCH = 128                      # 16(e) (256, and 16(f)'s
+PAR_SWEEP = ((128,), ("xla", "pallas"))        # batch 1024, cut to keep
+                                               # the script near 800 s)
 TOL_PAR_COST = 1e-3      # tests/test_parallel.py:101-107: cost rtol,
 TOL_PAR_BOUNDS = 2e-3    # bounds atol (alpha equal)
 TOL_PAR_TIE = 1e-5       # relative: two lanes this close are a tie of
@@ -3285,57 +3301,27 @@ PAR_Z_MIN = 0.10
 PAR_XY_MAX = 0.25        # tests/test_parallel.py:193: final |x|, |y| [m]
 
 
-def small_config():
-    """tests/test_parallel.py:23-25's configuration."""
-    from bilevel_gait_gen_tpu_torch.utils.config import MPCConfig
-    return MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
-                     samples_per_stance=4, ee_node_start=1, ipm_iters=8,
-                     init_run_iters=2, max_ls_iters=4, dt=0.05).validate()
-
-
 def parallel_case(device):
     """Phase 16's inputs, float32.  (a): the bench problem (bench_config(),
     A1, N=20, ls_alphas=4) at batch 128 after one RTI, with t0 = 0 and the
-    shared x_des [12].  (c): tests/test_parallel.py:171-199's loop, its
-    small configuration, the settled stand, PAR_RANKS x PAR_LOOP_BATCH
-    scenarios with forward velocities in linspace(-0.1, 0.1), a cold
-    solver state."""
+    shared x_des [12].  (c): tests/test_parallel.py:171-199's loop
+    (``batch_invariance.loop_case``: its small configuration, the settled
+    stand, PAR_RANKS x PAR_LOOP_BATCH scenarios with forward velocities in
+    linspace(-0.1, 0.1), a cold solver state)."""
     import torch
-    from bilevel_gait_gen_tpu_torch.control import wbqp
-    from bilevel_gait_gen_tpu_torch.models import a1, rbd, srb
-    from bilevel_gait_gen_tpu_torch.mpc import gait, solver
-    from bilevel_gait_gen_tpu_torch.mpc.trajectory import default_trajectory
+    from bilevel_gait_gen_tpu_torch.mpc import solver
     from bilevel_gait_gen_tpu_torch.problem import make_problem
-    from bilevel_gait_gen_tpu_torch.sim import engine
-    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_map
+    from bilevel_gait_gen_tpu_torch.sim.batch_invariance import loop_case
     cfg = bench_config()
     pr = make_problem(cfg, BATCH, device=device, dtype=torch.float32)
     st, _ = solver.solve_step(cfg, pr.params, pr.states, pr.x0s, pr.t0,
                               pr.feets, pr.x_des)
     gait_case = dict(cfg=cfg, params=pr.params, states=st, x0s=pr.x0s,
                      feets=pr.feets, x_des=pr.x_des[0].clone())
-
-    scfg, B = small_config(), PAR_RANKS * PAR_LOOP_BATCH
-    model = a1.make_a1(device=device)
-    q0 = torch.tensor(a1.stand_config(), device=device).to(torch.float32)
-    params = srb.make_srb_params(model, q0)
-    x0 = srb.reconstruct_state(params, q0, torch.zeros(model.nv,
-                                                       device=device))
-    feet0 = rbd.ee_positions(model, q0)
-    traj = default_trajectory(scfg, gait.make_trot(scfg, dtype=torch.float32,
-                                                   device=device),
-                              x0[None], feet0[None, :, :2])
-    st1 = solver.SolverState(traj=traj, ee_box=torch.tensor(
-        [scfg.ee_box_size], device=device))
-    sim = engine.SimConfig()
-    v0s = torch.zeros(B, model.nv, device=device)
-    v0s[:, 0] = torch.linspace(-0.1, 0.1, B, device=device)
-    loop_case = dict(
-        model=model, params=params, cfg=scfg, wb_cfg=wbqp.WBQPConfig(),
-        sim=sim, states=tree_map(lambda a: a.repeat_interleave(B, 0), st1),
-        q0s=engine.settled_stand(model, sim, q0).repeat(B, 1), v0s=v0s,
-        xds=srb.manifold_to_tangent(x0).repeat(B, 1))
-    return gait_case, loop_case
+    case, st0, q0s, v0s, xds = loop_case(PAR_RANKS * PAR_LOOP_BATCH, device)
+    return gait_case, dict(model=case.model, params=case.params,
+                           cfg=case.cfg, wb_cfg=case.wb_cfg, sim=case.sim,
+                           states=st0, q0s=q0s, v0s=v0s, xds=xds)
 
 
 def record_lane_objectives(fn):
@@ -3495,15 +3481,13 @@ def check_sharded_loop(loops, ref_log, part_logs) -> str:
     loops put together on the scenario dimension (``loops``: each rank's
     two runs) against the unsharded loop (``ref_log``): q finite, q over
     the first PAR_Q_TICKS ticks within TOL_PAR_Q, z above PAR_Z_MIN, the
-    final |x|, |y| below PAR_XY_MAX, every MPC tick solved, and each rank's
-    second run bit for bit its first.  Each rank's loop is also held bit
-    for bit to the unsharded loop of its own PAR_LOOP_BATCH scenarios
-    (``part_logs``, one a rank): its shard is its slice.  The test's
-    scenario-by-scenario tracking of the z minima (within TOL_PAR_Q) is
-    printed, not gated: the loops of PAR_LOOP_BATCH and of PAR_RANKS x
-    PAR_LOOP_BATCH scenarios differ from the first tick on, and which
-    operation's result changes with the batch is not known (no trace has
-    shown it)."""
+    final |x|, |y| below PAR_XY_MAX, the z minima scenario by scenario
+    within TOL_PAR_Q (tests/test_parallel.py:194-195), every MPC tick
+    solved, and each rank's second run bit for bit its first.  Each rank's
+    loop is also held bit for bit to the unsharded loop of its own
+    PAR_LOOP_BATCH scenarios (``part_logs``, one a rank): its shard is its
+    slice.  How far the sharded and unsharded fleets are apart over all
+    ticks is printed (phase 17 traces why)."""
     import torch
     log = [torch.cat(f, dim=1) for f in zip(*(lp[0][1] for lp in loops))]
     q, cost, solved = (log[i].double().cpu().numpy() for i in (0, 4, 5))
@@ -3528,6 +3512,8 @@ def check_sharded_loop(loops, ref_log, part_logs) -> str:
                                f"scenarios")
                  for i, (lp, part) in enumerate(zip(loops, part_logs)))
     dz = float(np.abs(zmin - zmin_p).max())
+    check(dz <= TOL_PAR_Q, f"sharded loop: z minima {dz:.3e} from the "
+          f"unsharded's > {TOL_PAR_Q}")
     dq_all = np.abs(q - qp).max(axis=(1, 2))
     first = int(np.argmax(dq_all > 0)) if (dq_all > 0).any() else -1
     return (f"q over {PAR_Q_TICKS} ticks {dq:.3e} from the unsharded "
@@ -3536,9 +3522,8 @@ def check_sharded_loop(loops, ref_log, part_logs) -> str:
             f"{zmin.min():.3f} (> {PAR_Z_MIN}), final |x|, |y| max {xy:.3f} "
             f"(< {PAR_XY_MAX}), every MPC tick solved; each rank's rerun bit "
             f"for bit ({n_out} outputs); each rank bit for bit the unsharded "
-            f"loop of its {PAR_LOOP_BATCH} scenarios ({n_part} outputs); not "
-            f"gated: z minima {dz:.3e} from the unsharded's (the test's "
-            f"{TOL_PAR_Q})")
+            f"loop of its {PAR_LOOP_BATCH} scenarios ({n_part} outputs); z "
+            f"minima {dz:.3e} from the unsharded's (<= {TOL_PAR_Q})")
 
 
 def phase_parallel(card: str):
@@ -3566,9 +3551,9 @@ def phase_parallel(card: str):
         for bit its rerun and the unsharded loop of its 64 scenarios.
     (d) scripts/torch_multihost_demo.py (two processes on the card):
         MULTIHOST OK and the same mean cost on both.
-    (e) scripts/torch_distr_rejection.py's default at batch 256, one
+    (e) scripts/torch_distr_rejection.py's default at batch 128, one
         process: its lines, the plan finite.
-    (f) scripts/torch_bench_sweep.py at batches 128 and 1024 for "xla" and
+    (f) scripts/torch_bench_sweep.py at batch 128 for "xla" and
         "pallas": its lines.
     Timings are printed, not gated.  Returns (launches, kernel rows)."""
     import contextlib
@@ -3717,7 +3702,290 @@ def phase_parallel(card: str):
           + f"; {time.perf_counter() - t_f:.1f} s", flush=True)
     print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return launches, krows
+    return launches, krows, (ref_log, part_logs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: one scenario's result at two batches
+# ---------------------------------------------------------------------------
+
+BI_BATCHES = (PAR_LOOP_BATCH, PAR_RANKS * PAR_LOOP_BATCH)   # 17(a-b)
+BI_BENCH_BATCHES = (1, 8, 64, 128)                          # 17(c)
+BI_PART = 1e-4           # m or rad: q apart by more, the runs have parted
+BI_OPS = 4               # batch-dependent operations printed a stage
+BI_SEED = 16             # the signs of 17(d)'s perturbation
+# the stages whose per-scenario product stays cuBLAS's batched GEMV: the
+# IK's damped pseudo-inverse (control/ik.py) in the IK and in its velocities,
+# through which phase 9's kernel check takes its inputs, and which its
+# elementwise form moved past that check's cap (PERF.md); printed, not gated
+BI_CUBLAS_STAGES = ("ik", "ik_velocities")
+
+
+def bench_rti_at_batches(cfg, device):
+    """17(c): one RTI of the bench problem (``make_problem``, batch 128)
+    on its leading b scenarios for each b of BI_BENCH_BATCHES: {b: (u,
+    cost, solved)}."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.mpc import solver
+    from bilevel_gait_gen_tpu_torch.mpc.trajectory import ravel_u
+    from bilevel_gait_gen_tpu_torch.problem import make_problem
+    from bilevel_gait_gen_tpu_torch.sim.batch_invariance import first
+    pr = make_problem(cfg, max(BI_BENCH_BATCHES), device=device,
+                      dtype=torch.float32)
+    out = {}
+    for b in BI_BENCH_BATCHES:
+        st, stats = solver.solve_step(cfg, pr.params,
+                                      *first(b, pr.loop_args()))
+        out[b] = (ravel_u(st.traj.f_nodes, st.traj.footholds), stats.cost,
+                  stats.solved)
+    return out
+
+
+def sign_perturbation(out, small_out, large_out, n: int, seed: int):
+    """``out`` (a stage's outputs) with each floating leaf moved by its
+    largest difference between the large run's first ``n`` scenarios and
+    the small run (``large_out``, ``small_out``), with a random sign per
+    entry, in the entries (past the scenario axis) where they differ."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.utils.graphs import tree_leaves, tree_map
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    moved = {}
+    for a, s, b in zip(tree_leaves(out), tree_leaves(small_out),
+                       tree_leaves(large_out)):
+        if not a.is_floating_point():
+            continue
+        diff = (b[:n] - s).abs().nan_to_num(0.0)
+        if not bool((diff > 0).any()):
+            continue
+        where = (diff > 0).any(dim=0).to(a.dtype)
+        sign = torch.randint(0, 2, a.shape, generator=gen).to(a) * 2 - 1
+        moved[id(a)] = a + diff.max() * sign * where
+    return tree_map(lambda a: moved.get(id(a), a), out)
+
+
+def phase_batch_invariance(card: str, loop_logs=None):
+    """Phase 17: where one scenario's float32 result on the card depends on
+    how many scenarios share its batch.
+
+    (a) 16(c)'s loop (``sim/batch_invariance``: ``engine.period`` run
+        through its stage hook) at batch 128 and at batch 64 on each half
+        of its scenarios (0-63, 64-127), at each MPC tick (0 and 20; the
+        state at tick 20 is the 128 loop's), each stage of the 128 run fed
+        the 64 run's inputs: each stage's largest per-scenario difference,
+        the first stage that differs, and inside each differing stage the
+        operations whose inputs agree and outputs do not, with the port's
+        line that issued them and the kernels ``torch.profiler`` shows for
+        them at each batch; on tick 0 also the gait update, as on a gait
+        period, on the same inputs (scenarios 0-63).
+    (b) 16(c)'s graphed loops (``loop_logs``: the loop of 128 and each
+        half's loop of 64, else run here): for each half, how far apart q
+        is at each tick, the z minima, the first tick and scenario where q
+        parts by more than BI_PART; the loop of 128 again eagerly with its
+        discrete choices (held bit for bit to the graphed log), and where a
+        half's loops part, that half's loop of 64 so too and the choices of
+        that scenario that flipped up to there.
+    (c) one RTI at bench width (``bench_config()``, [n=232, m=1232, p=16])
+        on the leading scenarios of ``make_problem`` at batches 1, 8, 64
+        and 128: u, cost and solved against batch 128.
+    (d) the loop's sensitivity: the 128 loop again with the first
+        differing stage's tick-0 outputs (scenarios 0-63) moved by their
+        largest 64-vs-128 difference, with random signs, where they differ:
+        how far the z minima move, held to 16(c)'s TOL_PAR_Q.
+    Gated, after every line is printed: every stage bit for bit but those
+    of BI_CUBLAS_STAGES, and kernel names found for every differing
+    operation.  Returns a dict of what it measured."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.sim import batch_invariance as bi
+    from bilevel_gait_gen_tpu_torch.sim import engine
+    t_phase = time.perf_counter()
+    n, B = BI_BATCHES
+    halves = range(0, B, n)
+    case, st0, q0, v0, xd = bi.loop_case(B, DEVICE)
+    result = {"stages": {}, "origins": {}, "kernels": {}, "halves": {}}
+
+    def eager_loop(lo, b):
+        """The loop of the b scenarios from lo eagerly, period by period:
+        (log, its choices, the state at each MPC tick)."""
+        return bi.instrumented_loop(
+            case, bi.part(st0, lo, b), q0[lo:lo + b], v0[lo:lo + b],
+            xd[lo:lo + b], n_ticks=PAR_LOOP["n_ticks"],
+            mpc_every=PAR_LOOP["mpc_every"])
+    eager, choices, starts = eager_loop(0, B)
+
+    # (a) each MPC tick's stages at two batches, for each half
+    probes, first_diff = {}, None
+    for ls in starts:
+        k = int(ls.tick)
+        for lo, gait in [(lo, False) for lo in halves] + (
+                [(0, True)] if k == 0 else []):
+            t_a = time.perf_counter()
+            who = f"scenarios {lo}-{lo + n - 1}"
+            diffs, small, large = bi.compare_stages(case, ls, xd, n, lo=lo,
+                                                    gait=gait)
+            for d in diffs:
+                if gait and d.name != "gait_opt_update":
+                    continue
+                result["stages"][f"{k}:{lo}:{d.name}"] = d.max_diff
+                print(f"[batch] (a) tick {k}, {who} at {n} and {B}, fed the "
+                      f"{n} run's inputs: {d.name}: "
+                      + ("bit for bit" if d.bitwise else
+                         f"max {d.max_diff:.3e} (outputs "
+                         + ", ".join(f"{i} {list(sh)} {x:.2e}"
+                                     for i, sh, x in d.per_output if x)
+                         + ")"), flush=True)
+                if d.bitwise:
+                    continue
+                if first_diff is None and k == 0 and lo == 0 and not gait:
+                    first_diff = (d, small.outs[d.name], large.outs[d.name])
+                if gait:
+                    # its operations are the RTI's and the lanes' (the
+                    # same sweeps); the stage's difference is printed above
+                    continue
+                ops, n_ops, parted, calls = bi.origin_ops(
+                    small.fns[d.name], small.args[d.name],
+                    large.args[d.name], block=lo // n)
+                result["origins"][f"{k}:{lo}:{d.name}"] = [o._asdict()
+                                                           for o in ops]
+                print(f"[batch] (a) tick {k}, {who}, {d.name}: {n_ops} "
+                      f"operations; {len(ops)}{'+' if len(ops) >= 20 else ''}"
+                      f" whose inputs agree and outputs differ, from "
+                      f"{sorted({o.where for o in ops})}"
+                      + (f"; the sequences part at operation {parted}"
+                         if parted is not None else ""), flush=True)
+                for o in ops[:BI_OPS]:
+                    print(f"[batch] (a)   #{o.index} {o.op} at {o.where}, "
+                          f"inputs {o.in_shapes} (at {B}), outputs "
+                          f"{o.max_diff:.3e} apart", flush=True)
+                for o in ops:
+                    key = (o.where, o.op, str(o.in_shapes))
+                    if key not in probes:
+                        probes[key] = calls[o.index]
+            print(f"[batch] (a) tick {k}, {who} "
+                  f"({'gait update' if gait else 'RTI'}): "
+                  f"{time.perf_counter() - t_a:.1f} s", flush=True)
+    names = bi.kernel_names({f"{key}@{bs}": c[j] for key, c in probes.items()
+                             for j, bs in enumerate(BI_BATCHES)})
+    for key in probes:
+        ks = [names[f"{key}@{bs}"] for bs in BI_BATCHES]
+        result["kernels"][" ".join(key)] = ks
+        print(f"[batch] (a) kernels of {key[1]} {key[2]} at {key[0]}: "
+              + "; ".join(f"at {bs}: {k}" for bs, k in zip(BI_BATCHES, ks)),
+              flush=True)
+    differing = [s for s, x in result["stages"].items() if x]
+    result["first_stage"] = differing[0] if differing else None
+    print(f"[batch] (a) the first stage that differs (tick:first "
+          f"scenario:stage): {result['first_stage']}", flush=True)
+
+    # (b) where each half's loops part and what flipped there
+    if loop_logs is None:
+        def graphed(lo, b):
+            return engine.closed_loop(
+                case.model, case.params, case.cfg, case.wb_cfg, case.sim,
+                bi.part(st0, lo, b), q0[lo:lo + b], v0[lo:lo + b],
+                xd[lo:lo + b], **PAR_LOOP)[1]
+        loop_logs = (graphed(0, B), [graphed(lo, n) for lo in halves])
+    ref_log, half_logs = loop_logs
+    n_eq = check_bitwise(eager, ref_log, "phase 17: the eager loop of "
+                         f"{B}, period by period, against 16(c)'s graphed "
+                         f"loop")
+    ticks = sorted({k for k in (0, 1, 2, 5, 10, 19, 20, 21, 30,
+                                ref_log.q.shape[0] - 1)
+                    if k < ref_log.q.shape[0]})
+    print(f"[batch] (b) the eager loop of {B}, period by period, is 16(c)'s "
+          f"graphed loop bit for bit ({n_eq} outputs)", flush=True)
+    for lo, small_log in zip(halves, half_logs):
+        q_b, q_n = ref_log.q[:, lo:lo + n], small_log.q
+        gap = (q_b.double() - q_n.double()).abs().amax(dim=(1, 2))
+        part = bi.first_parting(q_b, q_n, BI_PART)
+        dzmin = float((q_b[:, :, 2].double().amin(dim=0)
+                       - q_n[:, :, 2].double().amin(dim=0)).abs().max())
+        cap = choices.qp_capped[:, lo:lo + n]
+        res = {"q_apart": float(gap.max()), "zmin_apart": dzmin,
+               "parting": part}
+        line = (f"[batch] (b) scenarios {lo}-{lo + n - 1}, 16(c)'s loops "
+                f"of {B} and of {n}: max |dq| {float(gap.max()):.3e} over "
+                f"all {q_b.shape[0]} ticks (z minima {dzmin:.3e} apart), "
+                f"at ticks {ticks}: "
+                f"{[float(f'{float(gap[k]):.3e}') for k in ticks]}; q parts "
+                f"by more than {BI_PART} at "
+                + (f"tick {part[0]}, scenario {lo + part[1]} "
+                   f"({part[2]:.3e})" if part else "no tick")
+                + f"; the torque QP on its sweep cap at {int(cap.sum())} of "
+                f"{cap.numel()} (tick, scenario) in the {B} run")
+        if part:
+            k, s, _ = part
+            log_n, ch_n, _ = eager_loop(lo, n)
+            check_bitwise(log_n, small_log, f"phase 17: the eager loop of "
+                          f"scenarios {lo}-{lo + n - 1} against 16(c)'s "
+                          f"graphed loop")
+            ch_b = bi.Choices(*(c[:, lo:lo + n] for c in choices))
+            fl = bi.flips(ch_b, ch_n, s, k)
+            res["flips"] = fl
+            line += (f" ({int(cap[k].sum())} at tick {k}); scenario "
+                     f"{lo + s}'s choices that differ between {B} / {n} up "
+                     f"to tick {k}: {fl or 'none'}")
+            # the scenario furthest apart at the end, and what flipped in it
+            # over the whole run
+            last = q_b.shape[0] - 1
+            d_end = (q_b[last].double() - q_n[last].double()).abs().amax(-1)
+            s_end = int(torch.argmax(d_end))
+            fl_end = bi.flips(ch_b, ch_n, s_end, last)
+            kinds = {}
+            for f in fl_end:
+                what = f.split(": ", 1)[1].rsplit(" (", 1)[0]
+                kinds[what] = kinds.get(what, 0) + 1
+            res["end"] = (lo + s_end, float(d_end[s_end]), fl_end)
+            line += (f"; at tick {last} scenario {lo + s_end} is furthest "
+                     f"apart ({float(d_end[s_end]):.3e}); its choices that "
+                     f"differ over all ticks: {len(fl_end)} ({kinds}), the "
+                     f"first {fl_end[:BI_OPS]}")
+        result["halves"][lo] = res
+        print(line, flush=True)
+
+    # (c) the bench-width RTI at four batches
+    rti = bench_rti_at_batches(bench_config(), DEVICE)
+    ref_u, ref_c, ref_s = rti[max(BI_BENCH_BATCHES)]
+    result["bench_rti"] = {}
+    for b, (u, c, s) in rti.items():
+        du, dc = bi.max_diff(u, ref_u[:b]), bi.max_diff(c, ref_c[:b])
+        ds = int((s != ref_s[:b]).sum())
+        result["bench_rti"][b] = (du, dc, ds)
+    print("[batch] (c) one RTI at bench width, the leading scenarios of "
+          f"make_problem: against batch {max(BI_BENCH_BATCHES)}: "
+          + "; ".join(f"batch {b}: u {du:.3e}, cost {dc:.3e}, solved flags "
+                      f"differ at {ds}"
+                      for b, (du, dc, ds) in result["bench_rti"].items()),
+          flush=True)
+
+    # (d) the loop's sensitivity to a change of the first stage's size
+    if first_diff is not None:
+        d, small_out, large_out = first_diff
+        pert = {d.name: lambda out: sign_perturbation(
+            out, small_out, large_out, n, BI_SEED)}
+        log, _, _ = bi.instrumented_loop(
+            case, st0, q0, v0, xd, n_ticks=PAR_LOOP["n_ticks"],
+            mpc_every=PAR_LOOP["mpc_every"], perturb=pert)
+        zb = eager.q[:, :, 2].double().amin(dim=0)
+        dz = float((zb - log.q[:, :, 2].double().amin(dim=0)).abs().max())
+        result["sensitivity"] = dz
+        print(f"[batch] (d) the loop of {B} with {d.name}'s tick-0 outputs "
+              f"moved by their largest {n}-vs-{B} difference where they "
+              f"differ (random signs, seed {BI_SEED}): z minima {dz:.3e} "
+              f"from the unmoved loop (<= {TOL_PAR_Q})", flush=True)
+        check(dz <= TOL_PAR_Q, f"phase 17: the z minima moved {dz:.3e} by "
+              f"a change of the batch's size > {TOL_PAR_Q}")
+
+    # the gates, after every line above is printed
+    gated = [x for x in differing
+             if x.split(":")[2] not in BI_CUBLAS_STAGES]
+    check(not gated, f"phase 17: every stage of the MPC ticks bit for bit "
+          f"at {n} and {B} scenarios but {BI_CUBLAS_STAGES}; differing: "
+          f"{gated}")
+    unnamed = [k for k, ks in result["kernels"].items() if not all(ks)]
+    check(not (unnamed and q0.is_cuda), f"phase 17: no device kernel found "
+          f"by the profiler for the differing operations {unnamed}")
+    print(f"[batch] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return result
 
 
 def main() -> int:
@@ -3745,7 +4013,8 @@ def main() -> int:
     golden_launches, golden_rows = phase_golden(card)
     clh_launches, clh_rows = phase_closed_loop_harness(card)
     demo_launches, demo_rows = phase_demos(card)
-    par_launches, par_rows = phase_parallel(card)
+    par_launches, par_rows, par_logs = phase_parallel(card)
+    phase_batch_invariance(card, par_logs)
     # launches: gtwg and ipm_iter from the "chol" cadence (phase 4),
     # gj_inverse from the cold start + cycle under "gj" (phase 7), rgemm and
     # chol_inverse from the centroidal RTI (phase 9); every path's counts are
