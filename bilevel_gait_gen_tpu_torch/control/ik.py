@@ -22,9 +22,11 @@ def _damped_pinv_apply(J: torch.Tensor, r: torch.Tensor,
     eye = torch.eye(J.shape[-2], dtype=J.dtype, device=J.device)
     JJt = J @ J.mT + damping * eye
     # cuBLAS's batched GEMV, whose kernel changes with the batch count, kept
-    # on purpose: the batch-invariant form (utils/jnp_compat.matvec) moves
-    # the centroidal RTI's IK, and chip_smoke.py phase 9's kernel check on
-    # it past its cap (PERF.md §6)
+    # on purpose: the elementwise form moved the centroidal RTI's IK, and
+    # chip_smoke.py phase 9's kernel check on it, past that check's cap; on
+    # ops/kernels.bmv (utils/jnp_compat) phase 9 holds, but the closed-loop
+    # harness's whole-controller card-vs-CPU check (phase 14) goes past its
+    # limit (PERF.md §6)
     return (J.mT @ spd_solve(JJt, r)[..., None])[..., 0]
 
 

@@ -52,6 +52,27 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2, inner: int = 1) -> float:
     return float(np.median(times))
 
 
+def graphed_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph (after two on a side stream), the graph replayed between two
+    CUDA events (median of ``reps``), over ``calls``.  No host time is in
+    the window: for a call whose launch costs more on the host than its
+    kernel on the device."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(g.replay, reps=reps) / calls
+    del g
+    return ms
+
+
 def profile_call(call, label: str) -> dict:
     """One call under ``torch.profiler`` after an untraced one: the
     device's busy time (the union of its kernels' and copies' intervals)
@@ -147,6 +168,31 @@ def handed_sweep_bytes(B: int, m: int, n: int, p: int,
                        + solves * (2 * nn + 2 * pn + pp)
                        + (2 + 4 * refine_steps) * pn + vecs))
     return {k: 4.0 * B * v for k, v in per.items()}
+
+
+def bmv_err(got, ref, X, Y) -> float:
+    """Largest |got - ref| of :func:`kernels.bmv` against its plain version,
+    each entry over its own sum_k |X_k Y_k| and over K eps: two sums of the
+    same K products in different orders are within (K - 1) eps of that sum
+    apart (to first order), so a result within the order's bound reads
+    <= 1."""
+    K = X.shape[-1]
+    eps = torch.finfo(X.dtype).eps
+    scale = kernels.bmv_reference(X.abs(), Y.abs())
+    err = (got - ref).abs() / (scale * K * eps).clamp_min(
+        torch.finfo(X.dtype).tiny)
+    return float(err.max())
+
+
+def bmv_work(X, Y) -> tuple[float, float]:
+    """(operations, bytes) of one :func:`kernels.bmv`: 2 K a result entry;
+    X and Y read once (a broadcast operand once, not once per scenario)
+    and the result written once."""
+    batch = torch.broadcast_shapes(X.shape[:-2], Y.shape[:-2])
+    n_out = float(np.prod(batch)) * X.shape[-2] * Y.shape[-2]
+    item = X.element_size()
+    return (2.0 * n_out * X.shape[-1],
+            item * (X.numel() + Y.numel() + n_out))
 
 
 def rel_err(got, ref) -> float:

@@ -54,6 +54,18 @@ Ports of the three TPU kernels of
   padding, shift, guarded Newton-Schulz deflation), the exact refresh of
   ``cfg.ipm_inverse="gj"``.
 
+One more kernel replaces no TPU kernel:
+
+* :func:`bmv` (``csrc/bmv.cu``): the per-scenario products of
+  ``utils/jnp_compat`` (matvec, vecmat, X Y^T) and the IK's, which the JAX
+  package leaves to XLA's dots.  cuBLAS's batched GEMV and small GEMM pick
+  their kernel, and so how a row's sum is split, by the batch count, so a
+  scenario's bits changed with its batch; here every entry is summed in an
+  order fixed by its length alone (a thread's FMA chain up to 32 terms,
+  else a warp's 32 strided chains and a fixed butterfly), one launch a
+  product, operands read in place by their strides, float32 and float64.
+  Bound by bytes, and at the sites' sizes by a launch's latency.
+
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs the
 plain PyTorch version only on a CPU tensor; there is no fallback.  Each keeps
 a plain integer count of its launches in ``<wrapper>.launches``
@@ -87,13 +99,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _SOURCES = ("common.cuh", "gtwg.cu", "ipm_iter.cu", "gj_inverse.cu",
-            "chol_inverse.cu")
+            "chol_inverse.cu", "bmv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "bggt_gtwg": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P],
                   _I),
@@ -107,6 +120,8 @@ _SIGNATURES = {
     "bggt_gj_inverse": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "bggt_gj_smem_bytes": ([_I, _I], _I),
     "bggt_gj_block_width": ([], _I),
+    "bggt_bmv": ([_P, _P, _P, _I, _I, _I, _I] + [_L] * 10
+                 + [_I, _I, _I, _P], _I),
     "bggt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -203,9 +218,11 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _on_card(*ts: torch.Tensor) -> bool:
-    """True for CUDA float32 (or int32 state) operands, False for CPU
-    tensors; anything else raises.  The wrappers make operands contiguous
+def _on_card(*ts: torch.Tensor,
+             dtypes=(torch.float32, torch.int32)) -> bool:
+    """True for CUDA operands of the ``dtypes`` named (float32, or int32
+    state, unless the caller says otherwise), False for CPU tensors;
+    anything else raises.  The wrappers make operands contiguous
     themselves."""
     dev = ts[0].device
     if dev.type == "cpu":
@@ -213,8 +230,8 @@ def _on_card(*ts: torch.Tensor) -> bool:
     _require(dev.type == "cuda", f"unsupported device {dev}")
     for t in ts:
         _require(t.device == dev, "operands on different devices")
-        _require(t.dtype in (torch.float32, torch.int32),
-                 f"kernels take float32 (and int32 state), got {t.dtype}")
+        if t.dtype not in dtypes:    # the message built only on failure
+            raise ValueError(f"kernels take {dtypes}, got {t.dtype}")
     return True
 
 
@@ -732,11 +749,172 @@ def spd_inverse(M: torch.Tensor, *, shift: float = 1e-3,
     return out * d[..., :, None] * d[..., None, :]
 
 
+# ----------------------------------------------------------------------------
+# bmv: the per-scenario products, batch-invariant
+# ----------------------------------------------------------------------------
+
+BMV_AXES = 3         # broadcast batch axes csrc/bmv.cu addresses (kMaxAxes)
+_BMV_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def bmv_reference(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bmv`: each entry the sum over the shared last
+    axis of an elementwise product (the elementwise form the card's
+    per-scenario products took before the kernel).  The spec of the tests;
+    nothing on the card's path calls it."""
+    return (X.contiguous()[..., :, None, :]
+            * Y.contiguous()[..., None, :, :]).sum(-1)
+
+
+def _bmv_layout(X: torch.Tensor, Y: torch.Tensor):
+    """(batch shape, axes): the batch axes of X and Y broadcast against each
+    other, and those of size > 1 as [size, X stride, Y stride] (0 where an
+    operand is broadcast), outermost first, adjacent axes merged where both
+    operands' strides allow."""
+    nb = max(X.ndim, Y.ndim) - 2
+    xs, ys, xst, yst = X.shape, Y.shape, X.stride(), Y.stride()
+    dx, dy = nb + 2 - X.ndim, nb + 2 - Y.ndim
+    batch: list[int] = []
+    axes: list[list[int]] = []
+    for i in range(nb):
+        nx = xs[i - dx] if i >= dx else 1
+        ny = ys[i - dy] if i >= dy else 1
+        n = nx if ny == 1 else ny
+        if nx not in (1, n):
+            raise ValueError(f"bmv: batch axes of X {tuple(xs)} and Y "
+                             f"{tuple(ys)} do not broadcast")
+        batch.append(n)
+        if n == 1:
+            continue
+        sx = xst[i - dx] if nx != 1 else 0
+        sy = yst[i - dy] if ny != 1 else 0
+        if axes and axes[-1][1] == sx * n and axes[-1][2] == sy * n:
+            axes[-1] = [axes[-1][0] * n, sx, sy]
+        else:
+            axes.append([n, sx, sy])
+    return batch, axes
+
+
+def _bmv_forward(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/bmv.cu on CUDA tensors (operands read in place by
+    their strides; copied only where more than BMV_AXES batch axes stay
+    apart); :func:`bmv_reference` on CPU tensors."""
+    if X.ndim < 2 or Y.ndim < 2 or X.shape[-1] != Y.shape[-1]:
+        raise ValueError(f"bmv: X {tuple(X.shape)} and Y {tuple(Y.shape)} "
+                         f"need a shared last axis")
+    if X.dtype != Y.dtype or X.dtype not in _BMV_DTYPES:
+        raise ValueError(f"bmv takes float32 or float64, got {X.dtype} and "
+                         f"{Y.dtype}")
+    if not _on_card(X, Y, dtypes=tuple(_BMV_DTYPES)):
+        return bmv_reference(X, Y)
+    lib, _ = build()
+    batch, axes = _bmv_layout(X, Y)
+    if len(axes) > BMV_AXES:
+        X = X.expand(*batch, *X.shape[-2:]).contiguous()
+        Y = Y.expand(*batch, *Y.shape[-2:]).contiguous()
+        batch, axes = _bmv_layout(X, Y)
+    A, K = X.shape[-2:]
+    Bn = Y.shape[-2]
+    out = X.new_empty(*batch, A, Bn)
+    if out.numel() == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    axes = [[1, 0, 0]] * (BMV_AXES - len(axes)) + axes
+    (n0, x0, y0), (n1, x1, y1), (n2, x2, y2) = axes
+    _check(lib, lib.bggt_bmv(X.data_ptr(), Y.data_ptr(), out.data_ptr(),
+                             _BMV_DTYPES[X.dtype], n0, n1, n2, x0, x1, x2,
+                             y0, y1, y2, X.stride(-2), X.stride(-1),
+                             Y.stride(-2), Y.stride(-1), A, Bn, K,
+                             _stream()), "bmv")
+    bmv.launches += 1
+    return out
+
+
+def _vmapped_first(t: torch.Tensor, dim: int | None,
+                   nb: int) -> torch.Tensor:
+    """t with its vmapped axis first (a size-1 axis where it has none) and
+    its batch axes padded to nb, a view."""
+    t = t.unsqueeze(0) if dim is None else t.movedim(dim, 0)
+    return t[(slice(None),) + (None,) * (nb - (t.ndim - 3))]
+
+
+class _Bmv(torch.autograd.Function):
+    """:func:`bmv` under autograd and ``torch.func``: the gait update's
+    outer gradient (``mpc/bilevel.py``) runs reverse mode through
+    ``qp.assemble``, whose ``srb.linearize`` takes ``jacfwd`` under
+    ``vmap`` of ``srb.dynamics`` and its ``srb._mv``.  Every product of a
+    rule is a :func:`bmv` again: ``jvp`` dX Y^T + X dY^T; ``backward``
+    dX = g Y (elementwise where Y is one row, a matvec's g v^T), dY =
+    g^T X; ``vmap`` moves the vmapped axis to the front as one more batch
+    axis."""
+
+    @staticmethod
+    def forward(X, Y):
+        return _bmv_forward(X, Y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        X, Y = ctx.saved_tensors
+        gX = gY = None
+        if ctx.needs_input_grad[0]:
+            gX = (g * Y if g.shape[-1] == 1 else bmv(g, Y.mT))
+            gX = gX.sum_to_size(X.shape)
+        if ctx.needs_input_grad[1]:
+            gY = bmv(g.mT, X.mT).sum_to_size(Y.shape)
+        return gX, gY
+
+    @staticmethod
+    def jvp(ctx, dX, dY):
+        X, Y = ctx.saved_tensors
+        out = None if dX is None else bmv(dX, Y)
+        if dY is not None:
+            t = bmv(X, dY)
+            out = t if out is None else out + t
+        return out
+
+    @staticmethod
+    def vmap(info, in_dims, X, Y):
+        xd, yd = in_dims
+        nb = max(X.ndim - (xd is not None), Y.ndim - (yd is not None)) - 2
+        return bmv(_vmapped_first(X, xd, nb), _vmapped_first(Y, yd, nb)), 0
+
+
+def bmv(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Batched X Y^T, each entry a dot product over the shared last axis:
+    X [..., a, k], Y [..., b, k] -> [..., a, b], the batch axes broadcast
+    (a stride of 0 is read in place), float32 or float64.  A matvec M v is
+    ``bmv(M, v[..., None, :])[..., 0]``, a vecmat v M is the same on
+    ``M.mT`` (read by its strides, or a contiguous M^T).
+
+    On the card ``csrc/bmv.cu``: every entry is summed in an order fixed by
+    k alone (an FMA chain over k ascending up to k = 32, else 32 strided
+    chains and a fixed xor butterfly), so a scenario gets the
+    same bits whatever the batch beside it.  On CPU tensors
+    :func:`bmv_reference`.  Differentiable in both operands, forward and
+    reverse, and under ``torch.func.vmap`` (:class:`_Bmv`); a call that
+    needs neither goes to the launch directly (the autograd.Function's host
+    cost is about that of the rest of the call)."""
+    if (torch._C._are_functorch_transforms_active()
+            or (torch.is_grad_enabled()
+                and (X.requires_grad or Y.requires_grad))):
+        return _Bmv.apply(X, Y)
+    return _bmv_forward(X, Y)
+
+
+bmv.launches = 0
+
+
 def launch_counts() -> dict[str, int]:
     """The launch count of each wrapper, by kernel name."""
     return {"gtwg": gtwg.launches, "ipm_iter": ipm_iter.launches,
             "gj_inverse": gj_inverse.launches, "rgemm": rgemm.launches,
-            "chol_inverse": chol_inverse.launches}
+            "chol_inverse": chol_inverse.launches, "bmv": bmv.launches}
 
 
 def reset_launch_counts() -> None:
@@ -745,5 +923,6 @@ def reset_launch_counts() -> None:
     ipm_iter.launches_by_kernel = dict.fromkeys(IPM_KERNELS, 0)
     rgemm.launches = 0
     chol_inverse.launches = 0
+    bmv.launches = 0
     gj_inverse.launches = 0
     gj_inverse.launches_by_form = dict.fromkeys(GJ_FORMS, 0)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from bilevel_gait_gen_tpu_torch.ops import kernels
 from bilevel_gait_gen_tpu_torch.utils.consts import const
 
 
@@ -49,9 +50,9 @@ def take(arr: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.gather(arr_e, dim, idx_e).squeeze(dim)
 
 
-# a per-scenario product takes the elementwise form on the card when its
-# matrix is at most MATVEC_SUM_WIDTH columns wide; a wider one keeps cuBLAS's
-# batched GEMV or GEMM
+# a per-scenario product takes the batch-invariant kernel on the card when
+# its matrix is at most MATVEC_SUM_WIDTH columns wide; a wider one keeps
+# cuBLAS's batched GEMV or GEMM
 MATVEC_SUM_WIDTH = 128
 
 
@@ -66,49 +67,42 @@ def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     its kernel, and how it splits each row's sum, by the batch count: a
     scenario's result then changes in its last bits with the number of
     scenarios beside it, and a closed loop amplifies that (PERF.md §6). On
-    the card a matrix of at most MATVEC_SUM_WIDTH columns takes the
-    elementwise form instead, a multiply and a sum over the contiguous last
-    axis (:func:`matvec_sum`), which PyTorch's reduction orders by the row
-    length alone. A wider matrix keeps the GEMV: the bench width's QP
-    matrices (232 columns) gave every batch from 1 to 128 the same bits,
-    and there the sum form's extra launches slowed a batch-1 RTI (PERF.md).
-    CPU tensors keep the plain products and the bits the CPU tests were
-    written against (there the closed loop's stages agree bit for bit at
-    batches 4 and 8)."""
+    the card a matrix of at most MATVEC_SUM_WIDTH columns takes
+    ``ops/kernels.bmv`` instead (``csrc/bmv.cu``), one launch that sums
+    every entry in an order fixed by the row length alone. A wider matrix
+    keeps the GEMV: the bench width's QP matrices (232 columns) gave every
+    batch from 1 to 128 the same bits (PERF.md). CPU tensors keep the plain
+    products and the bits the CPU tests were written against (there the
+    closed loop's stages agree bit for bit at batches 4 and 8)."""
     if _summed(M):
-        return matvec_sum(M, v)
+        return kernels.bmv(M, v[..., None, :])[..., 0]
     return (M @ v[..., None])[..., 0]
-
-
-def matvec_sum(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """:func:`matvec`'s elementwise form: each entry a sum over the
-    contiguous last axis of M * v."""
-    return (M.contiguous() * v[..., None, :]).sum(-1)
 
 
 def transposed(M: torch.Tensor) -> torch.Tensor | None:
     """M^T, contiguous, for :func:`vecmat` calls that share one M (made
-    once, not at every call); None where :func:`vecmat` keeps the library
-    product and needs none."""
+    once, not at every call: the kernel then reads M^T's rows, not M's
+    columns); None where :func:`vecmat` keeps the library product and needs
+    none."""
     return M.mT.contiguous() if _summed(M) else None
 
 
 def vecmat(v: torch.Tensor, M: torch.Tensor,
            Mt: torch.Tensor | None = None) -> torch.Tensor:
     """``v @ M`` (M^T v) for v [..., r] and M [..., r, c]; on the card, for
-    the matrices :func:`matvec` sums, the elementwise form on M^T (``Mt``,
-    from :func:`transposed`, else a copy made here)."""
+    the matrices :func:`matvec` takes to the kernel, the kernel on M^T
+    (``Mt``, from :func:`transposed`, else M's transposed view, read by its
+    strides)."""
     if _summed(M):
-        return matvec_sum(M.mT if Mt is None else Mt, v)
+        return kernels.bmv(M.mT if Mt is None else Mt, v[..., None, :])[..., 0]
     return (v[..., None, :] @ M)[..., 0, :]
 
 
 def matmul_nt(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """``X @ Y^T`` for X [..., a, k] and Y [..., b, k]: cuBLAS picks its
     batched GEMM by the batch count as it does its GEMV (:func:`matvec`), so
-    on the card, for the matrices :func:`matvec` sums, each entry is a sum
-    over the contiguous last axis."""
+    on the card, for the matrices :func:`matvec` takes to the kernel, each
+    entry is the kernel's dot product over the shared last axis."""
     if _summed(Y):
-        return (X.contiguous()[..., :, None, :]
-                * Y.contiguous()[..., None, :, :]).sum(-1)
+        return kernels.bmv(X, Y)
     return X @ Y.mT

@@ -9,8 +9,8 @@ through ``solver.solve_step`` and ``bilevel.gait_opt_update``, and checks
 it on the way:
 
 1. device: the card, its power limit, torch/CUDA versions, TF32 flags;
-2. build: compiles the three CUDA kernels from
-   ``bilevel_gait_gen_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels from ``bilevel_gait_gen_tpu_torch/csrc``
+   (one nvcc a source, side by side);
 3. kernels: ``gtwg``, ``ipm_iter`` and ``gj_inverse`` on the card against
    their plain PyTorch versions at the main path's shapes (the gait update's
    512 lane problems; the exact refresh's 128 matrices of an RTI, 232 rows
@@ -22,10 +22,16 @@ it on the way:
    sweep is timed with its Newton-Schulz refresh and as an exact sweep
    handed its M, with its parts (M, the Newton-Schulz products, the
    iteration kernel) and ``gtwg`` and the Newton-Schulz product at both
-   batches of the path (512 lanes, 128 polish problems);
+   batches of the path (512 lanes, 128 polish problems); ``bmv`` (the
+   batch-invariant per-scenario products of ``utils/jnp_compat``) at each
+   call site's shape in float32 and float64 against its plain version at
+   batches 128 and 1, its leading scenarios bit for bit at batches 1, 8, 64
+   and 128, timed as graphed calls beside the sum form it replaced and
+   cuBLAS;
 4. the slice: one warm-up and two timed cadence cycles
    (``mpc/cadence.cycle``, eagerly); every kernel of the path must have
-   launched during it, ``gtwg`` and ``ipm_iter`` six times a cycle each;
+   launched during it, ``gtwg`` and ``ipm_iter`` six times a cycle each,
+   ``bmv`` (``srb._mv`` in every assembly) at least once;
    then the same cycle and one RTI captured as CUDA graphs
    (``utils/graphs.Graphed``), replayed from the same state and held to
    the eager run bit for bit, six launches of each kernel counted at the
@@ -116,7 +122,7 @@ it on the way:
    (100 ticks at mpc_every=12, so a trailing partial period) graphed by
    ``engine.closed_loop`` against its periods run eagerly, bit for bit;
    torch_batch_sim_demo.py --big at batch 128 (real-time factor, upright
-   count); torch_diag_engine.py at 250 ticks (its trace, finite);
+   count); torch_diag_engine.py at 150 ticks (its trace, finite);
 16. ``parallel/`` (``mesh``, ``multihost`` over ``torch.distributed``) and
    the four scripts on it: the alpha-sharded gait update at bench width
    (batch 128, ``ls_alphas=4``) in two ``gloo`` processes that share the
@@ -142,9 +148,11 @@ it on the way:
    lines and the kernels ``torch.profiler`` shows at each batch; for each
    half, where 16(c)'s loops of 64 and 128 part and what flipped there (the
    loops again eagerly with their discrete choices); one RTI at bench width
-   at batches 1, 8, 64 and 128; the loop's z minima moved by the remaining
-   difference (the IK's product, left on cuBLAS).  Every stage bit for bit
-   but the IK's two, and kernel names for every differing operation.
+   at batches 1, 8, 64 and 128, and the products wider than 128 columns
+   (n = 256, 512) by cuBLAS and by ``bmv`` at those batches; the loop's z
+   minima moved by the remaining difference (the IK's product, left on
+   cuBLAS).  Every stage bit for bit but the IK's two, and kernel names for
+   every differing operation.
 
 Every phase prints its lines.  Any failed check raises, so the script exits
 non-zero and prints no result; without a CUDA device it fails at once.  The
@@ -165,7 +173,8 @@ import numpy as np
 
 from bilevel_gait_gen_tpu_torch.ops.kernel_checks import (
     TOL_GTWG, bound_ms, check, check_gtwg, clone_args, compare_ipm_iter,
-    cuda_ms, fresh_state, gtwg_work, rel_err, sweep_work, time_gemms)
+    cuda_ms, fresh_state, graphed_ms, gtwg_work, rel_err, sweep_work,
+    time_gemms)
 
 REPO = Path(__file__).resolve().parent
 FREQ = 10           # one gait update per FREQ real-time iterations
@@ -442,7 +451,122 @@ def phase_kernels(cfg):
                      bound_by_exact_sweep=by_exact,
                      bound_ms_iteration_batch128=bnd_it128, parts_ms=parts))
     rows.append(check_gj_inverse(cfg, qp))
+    rows.append(check_bmv())
     return rows
+
+
+# kernels.bmv's call sites: (label, X and Y of the leading b scenarios from
+# the full operands), X Y^T as the site multiplies (a matvec's v as Y's one
+# row; a transposed view where the site reads M's columns)
+BMV_BATCHES = (1, 8, 64, 128)
+BMV_SITES = (
+    ("RTI H x, 16(c)'s config", ((128, 120, 120), (128, 1, 120)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("qp.recover_states S u", ((128, 84, 120), (128, 1, 120)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("torque QP G x", ((128, 44, 30), (128, 1, 30)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("physics J^T f, J's view", ((128, 12, 18), (128, 1, 12)),
+     lambda M, v, b: (M[:b].mT, v[:b])),
+    ("rbd link inertias [1664, 3, 3]", ((128, 13, 3, 3), (128, 13, 1, 3)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("srb shared [3, 3] over 1664", ((3, 3), (1664, 1, 3)),
+     lambda M, v, b: (M, v[:13 * b])),
+    ("base velocity R^T h, R's view", ((128, 3, 3), (128, 1, 3)),
+     lambda M, v, b: (M[:b].mT, v[:b])),
+    ("Schur (A Mi) A^T", ((128, 16, 120), (128, 16, 120)),
+     lambda X, Y, b: (X[:b], Y[:b])),
+    ("IK's J J^T (the IK stays on cuBLAS)", ((128, 12, 12), (1,)),
+     lambda J, _, b: (J[:b], J[:b])),
+    ("IK's J^T y, J's view (the same)", ((128, 12, 12), (128, 1, 12)),
+     lambda J, y, b: (J[:b].mT, y[:b])),
+    ("Adam G x", ((128, 640, 128), (128, 1, 128)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("Adam G^T lam, G^T made once", ((128, 128, 640), (128, 1, 640)),
+     lambda M, v, b: (M[:b], v[:b])),
+)
+
+
+def check_bmv() -> dict:
+    """kernels.bmv (csrc/bmv.cu) at each call site's shape (BMV_SITES), in
+    float32 and float64: against its plain version at batch 128 and at
+    batch 1 (kernel_checks.bmv_err <= 1: within K eps of each entry's
+    sum_k |X_k Y_k|, the bound of two orders of summation); its leading
+    scenarios bit for bit at batches 1, 8, 64 and 128; one launch a call;
+    at batch 128 in float32 timed three ways (the kernel, the sum form it
+    replaced, cuBLAS's X @ Y^T) beside its bound."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    from bilevel_gait_gen_tpu_torch.ops.kernel_checks import (bmv_err,
+                                                              bmv_work)
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    shapes, worst, worst_abs, main = [], 0.0, 0.0, None
+    for label, (xs, ys), take in BMV_SITES:
+        for dtype in (torch.float32, torch.float64):
+            X0 = torch.randn(*xs, device=DEVICE, generator=gen, dtype=dtype)
+            Y0 = torch.randn(*ys, device=DEVICE, generator=gen, dtype=dtype)
+            full = kernels.bmv(*take(X0, Y0, max(BMV_BATCHES)))
+            errs = {}
+            for b in (max(BMV_BATCHES), 1):
+                X, Y = take(X0, Y0, b)
+                before = kernels.bmv.launches
+                got = kernels.bmv(X, Y)
+                check(kernels.bmv.launches == before + 1,
+                      f"bmv {label}: one launch a call")
+                ref = kernels.bmv_reference(X, Y)
+                errs[b] = bmv_err(got, ref, X, Y)
+                worst = max(worst, errs[b])
+                worst_abs = max(worst_abs, float((got - ref).abs().max()))
+                check(errs[b] <= 1.0, f"bmv {label} {dtype} at batch {b}: "
+                      f"{errs[b]:.3f} of K eps sum|X Y|")
+            # every site's result has its scenarios on its first axis
+            outs = {b: kernels.bmv(*take(X0, Y0, b)) for b in BMV_BATCHES}
+            apart = [b for b, got in outs.items()
+                     if not torch.equal(got, full[:got.shape[0]])]
+            check(not apart, f"bmv {label} {dtype}: the leading scenarios' "
+                  f"bits differ at batches {apart} from batch "
+                  f"{max(BMV_BATCHES)}")
+            X, Y = take(X0, Y0, max(BMV_BATCHES))
+            row = dict(site=label, dtype=str(dtype).split(".")[-1],
+                       X=list(X.shape), Y=list(Y.shape),
+                       err_batch128=errs[max(BMV_BATCHES)], err_batch1=errs[1])
+            if dtype == torch.float32:
+                # device time from graphed calls (a call's host side is
+                # several times its kernel), and the eager call's
+                row.update(
+                    ms=graphed_ms(lambda: kernels.bmv(X, Y)),
+                    sum_form_ms=graphed_ms(
+                        lambda: kernels.bmv_reference(X, Y)),
+                    cublas_ms=graphed_ms(lambda: X @ Y.mT),
+                    eager_call_ms=cuda_ms(lambda: kernels.bmv(X, Y),
+                                          inner=10))
+                row["bound_ms"], row["bound_by"] = bound_ms(*bmv_work(X, Y))
+                if main is None:
+                    main = row
+                print(f"[kernel] bmv {label}: X {list(X.shape)} Y "
+                      f"{list(Y.shape)}: float32 err {errs[128]:.3f} at "
+                      f"128, {errs[1]:.3f} at 1 (of K eps sum|X Y|); bit for "
+                      f"bit at batches {list(BMV_BATCHES)}; graphed: kernel "
+                      f"{row['ms']:.4f} ms, sum form {row['sum_form_ms']:.4f}"
+                      f" ms, cuBLAS {row['cublas_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.5f} ms ({row['bound_by']}); an "
+                      f"eager call {row['eager_call_ms']:.4f} ms",
+                      flush=True)
+            else:
+                print(f"[kernel] bmv {label}: float64 err {errs[128]:.3f} "
+                      f"at 128, {errs[1]:.3f} at 1; bit for bit at batches "
+                      f"{list(BMV_BATCHES)}", flush=True)
+            shapes.append(row)
+    return dict(name="bmv", route="cuda",
+                source="bilevel_gait_gen_tpu_torch/csrc/bmv.cu",
+                replaces="none: the per-scenario products "
+                         "(utils/jnp_compat.py) that the JAX package leaves "
+                         "to XLA's dots, on cuBLAS's batch-dependent GEMV",
+                max_abs_err=worst_abs, ms=main["ms"],
+                plain_ms=main["sum_form_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["cublas_ms"],
+                timed_site=main["site"], worst_err_of_bound=worst,
+                sites=shapes)
 
 
 def with_spd_inverse(wrap, fn) -> None:
@@ -685,7 +809,8 @@ def phase_slice(cfg):
     kernels.reset_launch_counts()
     st, secs, solved, gres = run_cadence(cfg, pr, cycles=3)
     launches = {"gtwg": kernels.gtwg.launches,
-                "ipm_iter": kernels.ipm_iter.launches}
+                "ipm_iter": kernels.ipm_iter.launches,
+                "bmv": kernels.bmv.launches}
     check(kernels.gj_inverse.launches == 0,
           'ipm_inverse="chol" never reaches gj_inverse')
     timed = secs[1:]
@@ -699,8 +824,12 @@ def phase_slice(cfg):
     check(frac >= 0.95, f"solved_frac {frac:.4f} >= 0.95")
     # per cycle: 4 lane sweeps and 2 polish sweeps, each one ipm_iter launch
     # and one gtwg launch (an exact sweep's M is formed once and handed on)
-    for name, n in launches.items():
+    for name in ("gtwg", "ipm_iter"):
+        n = launches[name]
         check(n == 6 * 3, f"{name}: {n} launches in 3 cycles, not 6 a cycle")
+    # the products of at most 128 columns: srb._mv's shared inertia in every
+    # assembly's linearization (the QP's own are 232 and 256 wide)
+    check(launches["bmv"] > 0, "bmv launched by the cadence")
     print(f"[slice] batch {BATCH}, N={cfg.num_nodes}, FREQ={FREQ}: "
           f"{BATCH * FREQ / cyc:.1f} solves/s, {cyc * 1e3:.1f} ms/cycle "
           f"(cycles {', '.join(f'{s * 1e3:.1f}' for s in secs)} ms, first "
@@ -1251,7 +1380,8 @@ def phase_closed_loop(card: str):
           f"{', '.join(f'{t:.1f}' for t in rti_ms)} ms; gait period: eager "
           f"{eager_gait_ms:.0f} ms, capture {capture_gait_ms:.0f} ms, graphed "
           f"{gait_ms:.1f} ms; replay vs eager bit for bit on all {n_out} "
-          f"outputs; captured launches {captured}; control tick: eager "
+          f"outputs; captured launches {captured}; control tick "
+          f"(captured launches {g_tick.captured_launches}): eager "
           f"{', '.join(f'{t:.2f}' for t in eager_tick_ms)} ms, graphed "
           f"median {float(np.median(tick_ms)):.3f} ms; device busy "
           + ", ".join(f"{k} {100 * r['busy_share_of_wall']:.1f}% of "
@@ -1655,7 +1785,9 @@ def phase_centroidal(card: str):
     sweeps = (cfg.init_run_iters + CENT_STEPS) * cfg.ipm_iters
     want = {"gtwg": sweeps, "ipm_iter": sweeps, "gj_inverse": 0,
             "rgemm": 2 * sweeps, "chol_inverse": sweeps}
-    check(launches == want, f"centroidal launches {launches}, not {want}")
+    # and bmv: srb._mv in the assembly's linearization
+    check({k: launches[k] for k in want} == want and launches["bmv"] > 0,
+          f"centroidal launches {launches}, not {want} and bmv")
     check(by_kernel == {"ipm_iter_kernel": 0,
                         "ipm_iter_handed_kernel": sweeps},
           f"centroidal iteration kernels {by_kernel}: every sweep handed")
@@ -1780,8 +1912,9 @@ def centroidal_card_vs_cpu(cfg) -> str:
 # ---------------------------------------------------------------------------
 
 ADMM_ITERS = 1600       # tests/test_admm.py's RTI on the ADMM backend
-ADMM_BLOCK = 3          # RTIs in phase 10's block (the bench's has 9: ~55
-                        # launches an ADMM iteration, ~800,000 a block)
+ADMM_BLOCK = 2          # RTIs in phase 10's block (the bench's has 9: ~55
+                        # launches an ADMM iteration, ~530,000 a block; 3
+                        # until the script neared 850 s)
 TOL_ADMM_POS = 1e-6     # m, card against CPU, both float64
 TOL_ADMM_COST = 1e-6    # relative, the same
 
@@ -1816,8 +1949,11 @@ def phase_admm(cfg):
     kernels.reset_launch_counts()
     eager, eager_ms = timed_ms(block(acfg, pr), *pr.loop_args())
     launches = kernels.launch_counts()
-    check(not any(launches.values()), f"no kernel on the ADMM path: "
-          f"{launches}")
+    # the QP's kernels are the interior-point path's; the assembly's
+    # products (srb._mv) take bmv, here in float64
+    check(not any(n for k, n in launches.items() if k != "bmv")
+          and launches["bmv"] > 0, f"no QP kernel on the ADMM path, bmv "
+          f"in its assemblies: {launches}")
     st, _, solved = eager
     check(finite_outputs(*eager), "ADMM block: every output finite")
     g, capture_ms = timed_ms(lambda: Graphed(block(acfg, pr),
@@ -1856,10 +1992,10 @@ def phase_admm(cfg):
     print(f"[admm] card vs CPU, float64, 2 scenarios, one RTI: {cmp}",
           flush=True)
     print(f"[admm] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(eager_block_ms=eager_ms,
-                graphed_block_ms=float(np.median(graph_ms)),
-                pdip_graphed_block_ms=float(np.median(pdip_ms)),
-                float32_nonfinite=nonfinite32)
+    return launches, dict(eager_block_ms=eager_ms,
+                          graphed_block_ms=float(np.median(graph_ms)),
+                          pdip_graphed_block_ms=float(np.median(pdip_ms)),
+                          float32_nonfinite=nonfinite32)
 
 
 def admm_card_vs_cpu(acfg) -> str:
@@ -2636,8 +2772,10 @@ def phase_hardware(card: str):
         check(cap[name] == 0 and launches[name] == 0,
               f"no {name} on the hardware loop: {cap}, {launches}")
     rti_cap = ctrl.runs.graphs["rti"].captured_launches
-    check(all(v == 0 for v in rti_cap.values()),
-          f"no kernel in the RTI update: {rti_cap}")
+    # the RTI's QP has no fused sweep; its assembly's products take bmv
+    check(all(v == 0 for k, v in rti_cap.items() if k != "bmv")
+          and rti_cap["bmv"] > 0, f"no QP kernel in the RTI update, bmv in "
+          f"its assembly: {rti_cap}")
     busy = kc.profile_call(ctrl.runs.graphs["tick"],
                            "hardware loop control tick (graphed)")
     final_state = tree_map(torch.clone, ctrl.st)
@@ -3092,9 +3230,9 @@ def phase_closed_loop_harness(card: str):
 # ---------------------------------------------------------------------------
 
 DEMO_BIG = ["128", "50", "--big"]    # batch_sim_demo --big: 1 period of 50
-DEMO_DIAG_TICKS = 250                # diag_engine: 5 periods of 50 (cut from
-                                     # 2 and 10 periods to keep the script
-                                     # near 800 s)
+DEMO_DIAG_TICKS = 150                # diag_engine: 3 periods of 50 (cut from
+                                     # 2, 10 and 5 periods to keep the
+                                     # script near 800 s)
 
 
 def load_script(name: str):
@@ -3166,7 +3304,7 @@ def phase_demos(card: str):
     (c) scripts/torch_batch_sim_demo.py --big at batch 128, 50 ticks: one
         run (its graph captured in it), the aggregate real-time factor and
         the upright count; the plan and the rollout finite.
-    (d) scripts/torch_diag_engine.py at 250 ticks: its trace; the plan
+    (d) scripts/torch_diag_engine.py at 150 ticks: its trace; the plan
         and the rollout (q, v, tau) finite.
     Returns (launches, kernel rows)."""
     import torch
@@ -3715,10 +3853,22 @@ BI_PART = 1e-4           # m or rad: q apart by more, the runs have parted
 BI_OPS = 4               # batch-dependent operations printed a stage
 BI_SEED = 16             # the signs of 17(d)'s perturbation
 # the stages whose per-scenario product stays cuBLAS's batched GEMV: the
-# IK's damped pseudo-inverse (control/ik.py) in the IK and in its velocities,
-# through which phase 9's kernel check takes its inputs, and which its
-# elementwise form moved past that check's cap (PERF.md); printed, not gated
+# IK's damped pseudo-inverse (control/ik.py) in the IK and in its velocities
+# (on kernels.bmv phase 14's whole-controller card-vs-CPU check went past
+# its limit, PERF.md); printed, not gated.  Where this is empty, 16(c)'s
+# loops of 64 and 128 are gated bit for bit too
 BI_CUBLAS_STAGES = ("ik", "ik_velocities")
+# 17(c): products wider than jnp_compat.MATVEC_SUM_WIDTH, still on cuBLAS:
+# (label, X [128, a, k], Y [128, b, k]) as X Y^T
+BI_WIDE = (
+    ("lanes / harness H x, n=256", (128, 256, 256), (128, 1, 256)),
+    ("lanes / harness G x, n=256", (128, 1280, 256), (128, 1, 256)),
+    ("harness A x, p=56, n=256", (128, 56, 256), (128, 1, 256)),
+    ("lanes G^T lam, G^T made once", (128, 256, 1280), (128, 1, 1280)),
+    ("centroidal H x, n=512", (128, 512, 512), (128, 1, 512)),
+    ("centroidal G x, n=512", (128, 1792, 512), (128, 1, 512)),
+    ("centroidal G^T lam", (128, 512, 1792), (128, 1, 1792)),
+)
 
 
 def bench_rti_at_batches(cfg, device):
@@ -3738,6 +3888,29 @@ def bench_rti_at_batches(cfg, device):
                                       *first(b, pr.loop_args()))
         out[b] = (ravel_u(st.traj.f_nodes, st.traj.footholds), stats.cost,
                   stats.solved)
+    return out
+
+
+def wide_products_at_batches(device) -> dict:
+    """17(c): each product of BI_WIDE (float32, seeded data) by cuBLAS
+    (X @ Y^T) and by kernels.bmv on the leading b scenarios for each b of
+    BI_BENCH_BATCHES: {label: {form: ([batches whose bits differ from batch
+    128's], ms at 128)}}."""
+    import torch
+    from bilevel_gait_gen_tpu_torch.ops import kernels
+    gen = torch.Generator(device=device).manual_seed(BI_SEED)
+    forms = {"cublas": lambda X, Y: X @ Y.mT, "bmv": kernels.bmv}
+    out = {}
+    for label, xs, ys in BI_WIDE:
+        X = torch.randn(*xs, device=device, generator=gen)
+        Y = torch.randn(*ys, device=device, generator=gen)
+        out[label] = {}
+        for name, fn in forms.items():
+            ref = fn(X, Y)
+            apart = [b for b in BI_BENCH_BATCHES
+                     if not torch.equal(fn(X[:b], Y[:b]), ref[:b])]
+            out[label][name] = (apart, graphed_ms(lambda: fn(X, Y)))
+        del X, Y
     return out
 
 
@@ -3786,13 +3959,18 @@ def phase_batch_invariance(card: str, loop_logs=None):
         that scenario that flipped up to there.
     (c) one RTI at bench width (``bench_config()``, [n=232, m=1232, p=16])
         on the leading scenarios of ``make_problem`` at batches 1, 8, 64
-        and 128: u, cost and solved against batch 128.
+        and 128: u, cost and solved against batch 128; the products wider
+        than ``jnp_compat.MATVEC_SUM_WIDTH`` (BI_WIDE: the lanes' and the
+        harness's n = 256, the centroidal n = 512) by cuBLAS and by
+        ``kernels.bmv`` at those batches, with their graphed times.
     (d) the loop's sensitivity: the 128 loop again with the first
         differing stage's tick-0 outputs (scenarios 0-63) moved by their
         largest 64-vs-128 difference, with random signs, where they differ:
         how far the z minima move, held to 16(c)'s TOL_PAR_Q.
     Gated, after every line is printed: every stage bit for bit but those
-    of BI_CUBLAS_STAGES, and kernel names found for every differing
+    of BI_CUBLAS_STAGES; where that is none, 16(c)'s loops bit for bit
+    over all their ticks (q and the z minima 0 apart); ``bmv`` bit for bit
+    at every batch of (c); and kernel names found for every differing
     operation.  Returns a dict of what it measured."""
     import torch
     from bilevel_gait_gen_tpu_torch.sim import batch_invariance as bi
@@ -3956,6 +4134,16 @@ def phase_batch_invariance(card: str, loop_logs=None):
                       f"differ at {ds}"
                       for b, (du, dc, ds) in result["bench_rti"].items()),
           flush=True)
+    result["wide_products"] = wide_products_at_batches(DEVICE)
+    for label, by_form in result["wide_products"].items():
+        print(f"[batch] (c) {label}, the leading scenarios at batches "
+              f"{list(BI_BENCH_BATCHES)} against {max(BI_BENCH_BATCHES)}: "
+              + "; ".join(f"{name}: " + (f"bits differ at {apart}" if apart
+                                         else "bit for bit")
+                          + f", {ms:.4f} ms graphed at "
+                          f"{max(BI_BENCH_BATCHES)}"
+                          for name, (apart, ms) in by_form.items()),
+              flush=True)
 
     # (d) the loop's sensitivity to a change of the first stage's size
     if first_diff is not None:
@@ -3981,6 +4169,17 @@ def phase_batch_invariance(card: str, loop_logs=None):
     check(not gated, f"phase 17: every stage of the MPC ticks bit for bit "
           f"at {n} and {B} scenarios but {BI_CUBLAS_STAGES}; differing: "
           f"{gated}")
+    if not BI_CUBLAS_STAGES:
+        apart = {lo: (r["q_apart"], r["zmin_apart"])
+                 for lo, r in result["halves"].items()
+                 if r["q_apart"] or r["zmin_apart"]}
+        check(not apart, f"phase 17: 16(c)'s loops of {n} and {B} bit for "
+              f"bit over all {PAR_LOOP['n_ticks']} ticks (q, z minima apart "
+              f"by half: {apart})")
+    bad = [label for label, by_form in result["wide_products"].items()
+           if by_form["bmv"][0]]
+    check(not bad, f"phase 17: kernels.bmv's leading scenarios bit for bit "
+          f"at batches {list(BI_BENCH_BATCHES)} on {bad}")
     unnamed = [k for k, ks in result["kernels"].items() if not all(ks)]
     check(not (unnamed and q0.is_cuda), f"phase 17: no device kernel found "
           f"by the profiler for the differing operations {unnamed}")
@@ -4007,7 +4206,7 @@ def main() -> int:
     gj_launches, gj_forms = phase_cold_start_gj(cfg)
     loop_launches, loop_rows = phase_closed_loop(card)
     cent_launches, cent_rows, schur_rows, cent_ms = phase_centroidal(card)
-    admm_ms = phase_admm(cfg)
+    admm_launches, admm_ms = phase_admm(cfg)
     fam_launches, fam_rows, fam_ms = phase_families(card)
     hw_launches, hw_rows = phase_hardware(card)
     golden_launches, golden_rows = phase_golden(card)
@@ -4047,7 +4246,7 @@ def main() -> int:
                                    "gj_cold_start": gj_launches.get(name, 0),
                                    "closed_loop": loop_launches[name],
                                    "centroidal_rti": cent_launches[name],
-                                   "admm_block": 0,
+                                   "admm_block": admm_launches[name],
                                    **{f"{fam}_cycle": n[name]
                                       for fam, n in fam_launches.items()},
                                    "hardware_loop": hw_launches[name],

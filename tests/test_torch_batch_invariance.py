@@ -10,23 +10,29 @@ batch (``sim/batch_invariance.py``, ``utils/jnp_compat.matvec``).
   the gait update too, and the last 4 scenarios on the first MPC tick; bit
   for bit, as the CPU gives it;
 * the card's batch-invariant products that replaced ``M @ v[..., None]``
-  (``jnp_compat.matvec`` / ``vecmat`` / ``matmul_nt``, at the shapes of
-  their call sites, forced on CPU tensors) and the functions rewritten on
-  them, against the old formulation in float64 at 1e-12 of each result's
-  largest magnitude; on CPU tensors the products keep the old bits;
+  (``jnp_compat.matvec`` / ``vecmat`` / ``matmul_nt`` on ``kernels.bmv``,
+  at the shapes of their call sites, forced on CPU tensors, where the
+  kernel's wrapper runs its plain version) and the functions rewritten on
+  them (the assembly with its gradient through ``kernels._Bmv``'s
+  autograd rules among them), against the old formulation in float64 at
+  1e-12 of each result's largest magnitude; on CPU tensors the products
+  keep the old bits;
 * the tracing itself finds an operation that couples the scenarios;
 * on the card (``cuda``-marked, skipped here): every stage of both MPC
   ticks but the IK's two bit for bit at batches 64 and 128, for either
   half of the 128 scenarios.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from bilevel_gait_gen_tpu_torch.control import wbqp
 from bilevel_gait_gen_tpu_torch.models import rbd
-from bilevel_gait_gen_tpu_torch.mpc import qp as qp_mod
-from bilevel_gait_gen_tpu_torch.ops import pdip
+from bilevel_gait_gen_tpu_torch.mpc import bilevel, qp as qp_mod
+from bilevel_gait_gen_tpu_torch.mpc.gait import GaitSchedule
+from bilevel_gait_gen_tpu_torch.ops import kernels, pdip
 from bilevel_gait_gen_tpu_torch.sim import batch_invariance as bi
 from bilevel_gait_gen_tpu_torch.sim import engine
 from bilevel_gait_gen_tpu_torch.utils import jnp_compat as jc
@@ -162,8 +168,17 @@ def card_rule(M):
 
 @pytest.fixture
 def card_form(monkeypatch):
-    """The card's (elementwise) products on CPU tensors."""
+    """The card's products (``kernels.bmv``, on CPU tensors its plain
+    version) on CPU tensors; the list of the calls' operand shapes."""
+    calls = []
+    bmv = kernels.bmv
+
+    def counted(X, Y):
+        calls.append((tuple(X.shape), tuple(Y.shape)))
+        return bmv(X, Y)
     monkeypatch.setattr(jc, "_summed", card_rule)
+    monkeypatch.setattr(kernels, "bmv", counted)
+    return calls
 
 
 # (M shape, v shape) of the call sites: the RTI's and the torque QP's
@@ -197,6 +212,11 @@ def test_card_products_are_the_old_products(card_form, shapes):
     kept = ms[-1] > jc.MATVEC_SUM_WIDTH
     assert bi.same_bits(jc.matvec(M, v), old_matvec(M, v)) or not kept
     assert (jc.transposed(M) is None) == kept
+    # the card's form is the kernel's: each product above of a matrix of at
+    # most MATVEC_SUM_WIDTH columns was one kernels.bmv call (five on M, one
+    # on M's transposed view)
+    wide_t = ms[-2] > jc.MATVEC_SUM_WIDTH
+    assert len(card_form) == 5 * (not kept) + (not wide_t)
 
 
 def test_cpu_products_keep_their_bits():
@@ -257,6 +277,34 @@ def test_rewritten_controller_and_states_are_the_old_formulation(
     y0, lam = torch.ones_like(qp.b), torch.ones_like(qp.h)
     for a, b in zip(*card_and_cpu(monkeypatch, pdip._residuals, qp.H, qp.q,
                                   qp.A, qp.b, qp.G, qp.h, x0, y0, lam, lam)):
+        assert_close(a, b)
+
+
+def test_assembly_and_its_gradient_are_the_old_formulation(f64_state,
+                                                           monkeypatch):
+    """``qp.assemble`` (``srb.linearize``: ``jacfwd`` under ``vmap`` of
+    ``srb._mv``'s shared inertia) and the gradient of the QP objectives
+    with respect to the contact times through it (the outer gradient's
+    reverse mode, ``mpc/bilevel.py``), on the card's products
+    (``kernels._Bmv``'s rules) against the CPU's."""
+    case, rec = f64_state
+    st, x_srb, t, feet, xd = rec.args["rti"]
+
+    def assembled():
+        bounds = st.traj.sched.bounds.detach().clone().requires_grad_(True)
+        traj = dataclasses.replace(st.traj,
+                                   sched=GaitSchedule(bounds=bounds))
+        with torch.enable_grad():
+            qp = qp_mod.assemble(case.cfg, case.params, traj, x_srb, t, feet,
+                                 xd, st.ee_box)
+            u = torch.linspace(-1.0, 1.0, qp.q.shape[-1],
+                               dtype=torch.float64).expand_as(qp.q)
+            (g,) = torch.autograd.grad(bilevel.qp_objective(qp, u).sum(),
+                                       bounds)
+        return qp.H.detach(), qp.q.detach(), qp.A.detach(), qp.G.detach(), g
+    card, cpu = card_and_cpu(monkeypatch, assembled)
+    assert bool(card[-1].abs().max() > 0)
+    for a, b in zip(card, cpu):
         assert_close(a, b)
 
 

@@ -31,11 +31,14 @@ AB_KEYS = {"ab_stretch_grid", "ab_cost_gait_on", "ab_cost_gait_off",
 
 
 def run(args, **env):
+    # one OpenMP thread: beside the suite's other test processes a team of
+    # eight waits at every parallel region on threads that are not running
     return subprocess.run(
         [sys.executable, str(SCRIPT), *args], cwd=SCRIPT.parent,
         capture_output=True, text=True, timeout=600,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "BENCH_BATCH": "2",
-             "BENCH_GAIT_OPT_FREQ": "2", "BENCH_N50": "0", **env})
+             "BENCH_GAIT_OPT_FREQ": "2", "BENCH_N50": "0",
+             "OMP_NUM_THREADS": "1", **env})
 
 
 def json_lines(stdout):

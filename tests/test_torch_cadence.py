@@ -315,9 +315,11 @@ def test_replay_gives_the_eager_bits(card, loop):
     assert_bitwise(got, want)
     if loop == "cycle":
         n = BENCH.ls_ipm_iters + BENCH.ipm_grad_polish
-        assert g.captured_launches == {"gtwg": n, "ipm_iter": n,
-                                       "gj_inverse": 0, "rgemm": 0,
-                                       "chol_inverse": 0}
+        caught = dict(g.captured_launches)
+        # kernels.bmv: srb._mv's shared inertia in every assembly
+        assert caught.pop("bmv") > 0
+        assert caught == {"gtwg": n, "ipm_iter": n, "gj_inverse": 0,
+                          "rgemm": 0, "chol_inverse": 0}
         before = kernels.launch_counts()
         g()
         assert kernels.launch_counts() == before

@@ -1,6 +1,7 @@
 """The PyTorch port as a package: no JAX import, the JAX <-> port converter
 round trip, and the float32 precision policy."""
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -29,7 +30,7 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
                 max_ls_iters=4, dt=0.05).validate()
 
 
-@pytest.mark.parametrize("module", [
+PORT_MODULES = [
     "bilevel_gait_gen_tpu_torch",
     "bilevel_gait_gen_tpu_torch.mpc.bilevel",
     "bilevel_gait_gen_tpu_torch.problem",
@@ -59,13 +60,43 @@ CFG = MPCConfig(num_nodes=6, num_phase_slots=4, phase_duration=0.5,
     "bilevel_gait_gen_tpu_torch.utils.collectives",
     "chip_smoke",
     "bench_torch",
-])
-def test_port_never_imports_jax(module):
+]
+_JAX_CHECK = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'bilevel_gait_gen_tpu'))")
+
+
+@pytest.fixture(scope="module")
+def jax_loaded_by():
+    """{module: what of jax and the JAX package its import loads}, from one
+    interpreter that imports PORT_MODULES in turn and notes what each import
+    added; where anything was, every module from there on is imported again
+    alone in an interpreter of its own, so that each verdict is that of an
+    import into a fresh interpreter."""
+    code = ("import importlib, json, sys\n"
+            "seen = {}\n"
+            f"for name in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            f"    {_JAX_CHECK}\n"
+            "    seen[name] = bad\n"
+            "print(json.dumps(seen))\n")
+    res = subprocess.run([sys.executable, "-c", code], check=True,
+                         timeout=300, capture_output=True, text=True)
+    seen = json.loads(res.stdout.splitlines()[-1])
+    first_bad = next((i for i, m in enumerate(PORT_MODULES) if seen[m]),
+                     None)
+    for name in PORT_MODULES[first_bad:] if first_bad is not None else ():
+        alone = subprocess.run(
+            [sys.executable, "-c", f"import {name}, json, sys; {_JAX_CHECK}; "
+             "print(json.dumps(bad))"], check=True, timeout=120,
+            capture_output=True, text=True)
+        seen[name] = json.loads(alone.stdout.splitlines()[-1])
+    return seen
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_never_imports_jax(module, jax_loaded_by):
     """Importing the port loads neither jax nor the JAX package."""
-    code = (f"import {module}, sys; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'bilevel_gait_gen_tpu')); assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+    assert not jax_loaded_by[module], jax_loaded_by[module]
 
 
 def test_solver_layer_loads_no_mesh_code():

@@ -1,8 +1,6 @@
 """What the four ``test_torch_kernels_*`` files share: the ``card`` fixture,
 the host build of the CUDA sources (``host_lib``, ``host_card``) and the
 seeded inputs of the kernels' tests."""
-import fcntl
-import os
 import re
 import shutil
 import subprocess
@@ -104,35 +102,7 @@ def host_lib(tmp_path_factory):
     subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-pthread", "-I", str(kernels.CSRC), "-o", str(lib_path),
                     str(cpp)], check=True, capture_output=True, timeout=300)
-    shared = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        shared = shared.parent
-    return _OneLaunchAtATime(kernels.bind(lib_path),
-                             shared / "host_kernels.lock"), lib_path
-
-
-class _OneLaunchAtATime:
-    """The host-compiled library with every call made under an exclusive
-    lock on ``lock_path``, a file that the test processes of one run share.
-    An emulated launch starts one thread per CUDA thread; two or three
-    processes launching side by side put over a thousand threads on the
-    machine's cores, their barriers wait on descheduled threads, and every
-    other test of the run slows down with them."""
-
-    def __init__(self, lib, lock_path):
-        self._lib, self._lock_path = lib, lock_path
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-
-        def call(*args):
-            with open(self._lock_path, "w") as lock:
-                fcntl.flock(lock, fcntl.LOCK_EX)
-                try:
-                    return fn(*args)
-                finally:
-                    fcntl.flock(lock, fcntl.LOCK_UN)
-        return call
+    return kernels.bind(lib_path), lib_path
 
 
 @pytest.fixture
@@ -140,7 +110,7 @@ def host_card(host_lib, monkeypatch):
     """Route the wrappers' CUDA branch to the host-compiled kernels."""
     monkeypatch.setattr(kernels, "build", lambda: host_lib)
     monkeypatch.setattr(kernels, "_stream", lambda: None)
-    monkeypatch.setattr(kernels, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(kernels, "_on_card", lambda *ts, **kw: True)
     return host_lib[0]
 
 
