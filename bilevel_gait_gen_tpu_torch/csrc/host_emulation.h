@@ -141,13 +141,26 @@ inline T __shfl_sync(unsigned, T v, int src_lane) {
   emu_wait(emu_warp_barriers[w]);
   return r;
 }
-// separately rounded product and difference (no contraction into an FMA)
+// separately rounded products, sums and differences (no contraction into
+// an FMA)
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;
   return r;
 }
 inline float __fsub_rn(float a, float b) {
   volatile float r = a - b;
+  return r;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline double __dadd_rn(double a, double b) {
+  volatile double r = a + b;
+  return r;
+}
+inline double __dmul_rn(double a, double b) {
+  volatile double r = a * b;
   return r;
 }
 // fused multiply-adds, one rounding (std::fma, as the card's FFMA / DFMA)

@@ -12,6 +12,7 @@ float32 peak and its bytes over the memory rate.
 from __future__ import annotations
 
 import time
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -193,6 +194,90 @@ def bmv_work(X, Y) -> tuple[float, float]:
     item = X.element_size()
     return (2.0 * n_out * X.shape[-1],
             item * (X.numel() + Y.numel() + n_out))
+
+
+# (significand bits, least normal exponent, greatest exponent) of the
+# dtypes bmv takes
+_BMV_FORMATS = {torch.float32: (24, -126, 127), torch.float64: (53, -1022,
+                                                                 1023)}
+
+
+def _round_exact(v: Fraction, fmt) -> Fraction:
+    """v, a dyadic rational (a sum or product of binary floats), correctly
+    rounded to the format (p, emin, emax), ties to even, subnormals
+    included; the result is exact (a Fraction).  An exact zero stays +0,
+    and overflow raises: neither is modelled further."""
+    if not v:
+        return v
+    p, emin, emax = fmt
+    n, d = abs(v.numerator), v.denominator
+    D = d.bit_length() - 1
+    assert d == 1 << D, "bmv_exact: operands are binary floats"
+    e = n.bit_length() - 1 - D                   # 2^e <= |v| < 2^(e+1)
+    s = D + max(e, emin) - (p - 1)               # bits of n under a quantum
+    if s <= 0:
+        return v                                 # representable as it is
+    m, r = n >> s, n & ((1 << s) - 1)
+    half = 1 << (s - 1)
+    if r > half or (r == half and m & 1):
+        m += 1
+    if m.bit_length() + s - D > emax + 1:
+        raise OverflowError("bmv_exact: a sum overflows the dtype")
+    out = Fraction(m << (s - D)) if s >= D else Fraction(m, 1 << (D - s))
+    return out if v > 0 else -out
+
+
+def bmv_exact(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """The arithmetic contract of ``csrc/bmv.cu`` on exact rationals: every
+    product, FMA and add of the kernel's order computed exactly
+    (``fractions.Fraction``) and correctly rounded to X's dtype once, ties
+    to even; float32 never passes through float64 (which would round
+    twice).  Per entry of X Y^T over the shared last axis (K terms):
+
+    * K <= 32: acc = X_0 Y_0, then acc = fma(X_k, Y_k, acc), k ascending;
+    * K > 32: lane l's chain the same over k = l, l + 32, ... (l < 32),
+      then at offsets 16, 8, 4, 2, 1 lane l's sum becomes p_l + p_(l^o);
+      the entry is lane 0's.
+
+    Batch axes broadcast as :func:`kernels.bmv`'s do.  On the host, for
+    small shapes (a few hundred thousand terms take seconds): the reference
+    the kernel is held to bit for bit."""
+    fmt = _BMV_FORMATS[X.dtype]
+    batch = torch.broadcast_shapes(X.shape[:-2], Y.shape[:-2])
+    Xn = X.detach().cpu().expand(*batch, *X.shape[-2:]).double().numpy()
+    Yn = Y.detach().cpu().expand(*batch, *Y.shape[-2:]).double().numpy()
+    A, K = Xn.shape[-2:]
+    Bn = Yn.shape[-2]
+    Xn, Yn = Xn.reshape(-1, A, K), Yn.reshape(-1, Bn, K)
+    out = np.zeros((Xn.shape[0], A, Bn))
+
+    def rnd(v):
+        return _round_exact(v, fmt)
+
+    def chain(x, y, ks):
+        acc = rnd(x[ks[0]] * y[ks[0]])
+        for k in ks[1:]:
+            acc = rnd(x[k] * y[k] + acc)
+        return acc
+
+    for z in range(Xn.shape[0]):
+        xs = [[Fraction(float(v)) for v in row] for row in Xn[z]]
+        ys = [[Fraction(float(v)) for v in row] for row in Yn[z]]
+        for a, x in enumerate(xs):
+            for b, y in enumerate(ys):
+                if K == 0:
+                    continue
+                if K <= 32:
+                    acc = chain(x, y, range(K))
+                else:
+                    lanes = [chain(x, y, range(lane, K, 32))
+                             for lane in range(32)]
+                    for o in (16, 8, 4, 2, 1):
+                        lanes = [rnd(lanes[lane] + lanes[lane ^ o])
+                                 for lane in range(32)]
+                    acc = lanes[0]
+                out[z, a, b] = float(acc)
+    return torch.from_numpy(out.reshape(*batch, A, Bn)).to(X.dtype)
 
 
 def rel_err(got, ref) -> float:

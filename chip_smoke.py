@@ -26,8 +26,9 @@ it on the way:
    batch-invariant per-scenario products of ``utils/jnp_compat``) at each
    call site's shape in float32 and float64 against its plain version at
    batches 128 and 1, its leading scenarios bit for bit at batches 1, 8, 64
-   and 128, timed as graphed calls beside the sum form it replaced and
-   cuBLAS;
+   and 128, its batch-1 output bit for bit the exact model of its order of
+   summation (``kernel_checks.bmv_exact``, on the host), timed as graphed
+   calls beside the sum form it replaced and cuBLAS;
 4. the slice: one warm-up and two timed cadence cycles
    (``mpc/cadence.cycle``, eagerly); every kernel of the path must have
    launched during it, ``gtwg`` and ``ipm_iter`` six times a cycle each,
@@ -459,6 +460,9 @@ def phase_kernels(cfg):
 # the full operands), X Y^T as the site multiplies (a matvec's v as Y's one
 # row; a transposed view where the site reads M's columns)
 BMV_BATCHES = (1, 8, 64, 128)
+# graphed ms a call at batch 128 (float32) that kernels.bmv must not pass
+# at two sites (about 1.6x and 1.4x its times on an H100 at 700 W)
+BMV_MS_CAPS = {"Schur (A Mi) A^T": 0.0080, "Adam G x": 0.0225}
 BMV_SITES = (
     ("RTI H x, 16(c)'s config", ((128, 120, 120), (128, 1, 120)),
      lambda M, v, b: (M[:b], v[:b])),
@@ -484,6 +488,19 @@ BMV_SITES = (
      lambda M, v, b: (M[:b], v[:b])),
     ("Adam G^T lam, G^T made once", ((128, 128, 640), (128, 1, 640)),
      lambda M, v, b: (M[:b], v[:b])),
+    # the shapes that launch most: the torque QP's H x, 449 of a control
+    # tick's 529 launches; the bench cadence's pdip products, H x 449, S^-1 r
+    # 414, G x and G^T lam 48 each of a cycle's 995 (scripts/torch_bmv_sites.py)
+    ("torque QP H x, a tick's most", ((128, 30, 30), (128, 1, 30)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("cadence pdip H x", ((128, 36, 36), (128, 1, 36)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("cadence pdip S^-1 r", ((128, 16, 16), (128, 1, 16)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("cadence pdip G x", ((128, 104, 36), (128, 1, 36)),
+     lambda M, v, b: (M[:b], v[:b])),
+    ("cadence pdip G^T lam, G^T made once", ((128, 36, 104), (128, 1, 104)),
+     lambda M, v, b: (M[:b], v[:b])),
 )
 
 
@@ -492,12 +509,15 @@ def check_bmv() -> dict:
     float32 and float64: against its plain version at batch 128 and at
     batch 1 (kernel_checks.bmv_err <= 1: within K eps of each entry's
     sum_k |X_k Y_k|, the bound of two orders of summation); its leading
-    scenarios bit for bit at batches 1, 8, 64 and 128; one launch a call;
-    at batch 128 in float32 timed three ways (the kernel, the sum form it
-    replaced, cuBLAS's X @ Y^T) beside its bound."""
+    scenarios bit for bit at batches 1, 8, 64 and 128; the batch-1 output
+    bit for bit the exact model of its order (kernel_checks.bmv_exact, on
+    the host); one launch a call; at batch 128 in float32 timed three ways
+    (the kernel, the sum form it replaced, cuBLAS's X @ Y^T) beside its
+    bound."""
     import torch
     from bilevel_gait_gen_tpu_torch.ops import kernels
     from bilevel_gait_gen_tpu_torch.ops.kernel_checks import (bmv_err,
+                                                              bmv_exact,
                                                               bmv_work)
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     shapes, worst, worst_abs, main = [], 0.0, 0.0, None
@@ -519,6 +539,14 @@ def check_bmv() -> dict:
                 worst_abs = max(worst_abs, float((got - ref).abs().max()))
                 check(errs[b] <= 1.0, f"bmv {label} {dtype} at batch {b}: "
                       f"{errs[b]:.3f} of K eps sum|X Y|")
+                if b == 1:
+                    exact = bmv_exact(X, Y)
+                    got = got.cpu()
+                    n_apart = int((got != exact).sum()) + int(
+                        (torch.signbit(got) != torch.signbit(exact)).sum())
+                    check(n_apart == 0, f"bmv {label} {dtype} at batch 1: "
+                          f"{n_apart} entries not bit for bit the exact "
+                          f"model of the kernel's order")
             # every site's result has its scenarios on its first axis
             outs = {b: kernels.bmv(*take(X0, Y0, b)) for b in BMV_BATCHES}
             apart = [b for b, got in outs.items()
@@ -546,16 +574,22 @@ def check_bmv() -> dict:
                 print(f"[kernel] bmv {label}: X {list(X.shape)} Y "
                       f"{list(Y.shape)}: float32 err {errs[128]:.3f} at "
                       f"128, {errs[1]:.3f} at 1 (of K eps sum|X Y|); bit for "
-                      f"bit at batches {list(BMV_BATCHES)}; graphed: kernel "
+                      f"bit at batches {list(BMV_BATCHES)}, at 1 bit for bit "
+                      f"the exact model; graphed: kernel "
                       f"{row['ms']:.4f} ms, sum form {row['sum_form_ms']:.4f}"
                       f" ms, cuBLAS {row['cublas_ms']:.4f} ms, bound "
                       f"{row['bound_ms']:.5f} ms ({row['bound_by']}); an "
-                      f"eager call {row['eager_call_ms']:.4f} ms",
+                      f"eager call {row['eager_call_ms']:.4f} ms; kernel / "
+                      f"cuBLAS {row['ms'] / row['cublas_ms']:.2f}",
                       flush=True)
+                cap = BMV_MS_CAPS.get(label)
+                check(cap is None or row["ms"] <= cap, f"bmv {label}: "
+                      f"graphed {row['ms']:.4f} ms over its cap {cap} ms")
             else:
                 print(f"[kernel] bmv {label}: float64 err {errs[128]:.3f} "
                       f"at 128, {errs[1]:.3f} at 1; bit for bit at batches "
-                      f"{list(BMV_BATCHES)}", flush=True)
+                      f"{list(BMV_BATCHES)}, at 1 bit for bit the exact "
+                      f"model", flush=True)
             shapes.append(row)
     return dict(name="bmv", route="cuda",
                 source="bilevel_gait_gen_tpu_torch/csrc/bmv.cu",
@@ -3230,9 +3264,9 @@ def phase_closed_loop_harness(card: str):
 # ---------------------------------------------------------------------------
 
 DEMO_BIG = ["128", "50", "--big"]    # batch_sim_demo --big: 1 period of 50
-DEMO_DIAG_TICKS = 150                # diag_engine: 3 periods of 50 (cut from
-                                     # 2, 10 and 5 periods to keep the
-                                     # script near 800 s)
+DEMO_DIAG_TICKS = 100                # diag_engine: 2 periods of 50 (cut from
+                                     # 2, 10, 5 and 3 periods to keep the
+                                     # script under 800 s)
 
 
 def load_script(name: str):

@@ -25,6 +25,7 @@ from bilevel_gait_gen_tpu.mpc.trajectory import default_trajectory
 from bilevel_gait_gen_tpu.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch import convert, problem
 from bilevel_gait_gen_tpu_torch.mpc import bilevel, solver
+from torch_jax_common import jit_per_scenario
 
 torch.set_num_threads(2)
 
@@ -56,22 +57,20 @@ def jax_run():
     states = jax.tree.map(lambda a: jnp.stack([a] * B), state)
     feets = jnp.stack([feet0] * B)
     t0 = jnp.asarray(0.0)
-    step = jax.jit(jax.vmap(lambda st, x, ee: jsolver.solve_step(
-        CFG, params, st, x, t0, ee, x_des)))
+    # one compile of the RTI serves the steps and the captured solution
+    step = jit_per_scenario(lambda st, x, ee: jsolver.solve_step(
+        CFG, params, st, x, t0, ee, x_des, return_ext=True))
     history = []
     for _ in range(STEPS):
-        states, stats = step(states, x0s, feets)
+        states, stats, _ = step(states, x0s, feets)
         history.append((states, stats))
-
-    def grad_at(st, x, ee):
-        _, _, ext = jsolver.solve_step(CFG, params, st, x, t0, ee, x_des,
-                                       return_ext=True)
-        return jbilevel.outer_gradient_at(CFG, params, ext.traj_lin, x, t0,
-                                          ee, x_des, st.ee_box, ext.sol)
-
-    grads = jax.jit(jax.vmap(grad_at))(states, x0s, feets)
-    gres = jax.jit(jax.vmap(lambda st, x, ee: jbilevel.gait_opt_update(
-        CFG, params, st, x, t0, ee, x_des)))(states, x0s, feets)
+    _, _, ext = step(states, x0s, feets)
+    grads = jit_per_scenario(
+        lambda st, e, x, ee: jbilevel.outer_gradient_at(
+            CFG, params, e.traj_lin, x, t0, ee, x_des, st.ee_box, e.sol))(
+        states, ext, x0s, feets)
+    gres = jit_per_scenario(lambda st, x, ee: jbilevel.gait_opt_update(
+        CFG, params, st, x, t0, ee, x_des))(states, x0s, feets)
     return dict(params=params, history=history, grads=grads, gres=gres,
                 x_des=x_des, x0s=x0s, feets=feets, t0=t0)
 
@@ -212,9 +211,9 @@ def test_outer_gradient_full_solve_matches_jax_grad(jax_run, port_run, warm):
     st = port_run["history"][-1][0]
     pr = port_run["pr"]
     t0 = jax_run["t0"]
-    gj = jax.jit(jax.vmap(lambda s_, x, ee: jbilevel.outer_gradient(
+    gj = jit_per_scenario(lambda s_, x, ee: jbilevel.outer_gradient(
         CFG, jax_run["params"], s_.traj, x, t0, ee, jax_run["x_des"],
-        s_.ee_box, s_.qp_warm if warm else None)))(
+        s_.ee_box, s_.qp_warm if warm else None))(
         jst, jax_run["x0s"], jax_run["feets"])
     g = bilevel.outer_gradient(CFG, pr.params, st.traj, pr.x0s, pr.t0,
                                pr.feets, pr.x_des, st.ee_box,
@@ -244,10 +243,10 @@ def test_line_search_matches_jax(jax_run, port_run):
     res = bilevel.line_search(CFG, pr.params, st, d, pr.x0s, pr.t0, pr.feets,
                               pr.x_des)
     # the JAX function takes a state without a carried warm start only
-    jres = jax.jit(jax.vmap(lambda tr, box, dd, x, ee: jbilevel.line_search(
+    jres = jit_per_scenario(lambda tr, box, dd, x, ee: jbilevel.line_search(
         CFG, jax_run["params"],
         jsolver.SolverState(traj=tr, ee_box=box, qp_warm=None), dd, x, t0,
-        ee, jax_run["x_des"])))(
+        ee, jax_run["x_des"]))(
         jst.traj, jst.ee_box, jnp.asarray(d.numpy()), jax_run["x0s"],
         jax_run["feets"])
     np.testing.assert_array_equal(res.alpha.numpy(), np.asarray(jres.alpha))
@@ -280,9 +279,10 @@ def test_gait_opt_update_with_curvature_over_two_ticks(jax_run, port_run):
     st = port_run["history"][-1][0]
     pr = port_run["pr"]
     t0 = jax_run["t0"]
-    jstep = jax.jit(jax.vmap(lambda s_, x, ee, tr, cv: jbilevel.gait_opt_update(
-        cfg, jax_run["params"], s_, x, t0, ee, jax_run["x_des"], trust=tr,
-        curv=cv)))
+    jstep = jit_per_scenario(
+        lambda s_, x, ee, tr, cv: jbilevel.gait_opt_update(
+            cfg, jax_run["params"], s_, x, t0, ee, jax_run["x_des"],
+            trust=tr, curv=cv))
     jcurv = jax.tree.map(lambda a: jnp.stack([a] * B),
                          jbilevel.init_curvature(cfg, jnp.float64))
     curv = bilevel.init_curvature(cfg, B, dtype=torch.float64, device="cpu")

@@ -33,6 +33,7 @@ from bilevel_gait_gen_tpu_torch import convert
 from bilevel_gait_gen_tpu_torch.control import ik, mpc_controller, wbqp
 from bilevel_gait_gen_tpu_torch.models import a1
 from bilevel_gait_gen_tpu_torch.mpc import solver
+from torch_jax_common import jit_per_scenario
 
 torch.set_num_threads(2)
 
@@ -84,8 +85,8 @@ def test_solve_ik_matches_jax(models):
         jnp.asarray(q))) + step
     guess = np.tile(ja1.stand_config().astype(np.float64), (4, 1))
     base_q = q[:, 3:7] * 1.3           # the result normalizes the quaternion
-    ref = jax.jit(jax.vmap(lambda p, b, f, g: jik.solve_ik(
-        jm, p, b, f, g, iters=30)))(q[:, :3], base_q, feet, guess)
+    ref = jit_per_scenario(lambda p, b, f, g: jik.solve_ik(
+        jm, p, b, f, g, iters=30))(q[:, :3], base_q, feet, guess)
     got = ik.solve_ik(pm, t(q[:, :3]), t(base_q), t(feet), t(guess),
                       iters=30)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
@@ -100,7 +101,7 @@ def test_ik_velocities_match_jax(models):
     rng = np.random.default_rng(3)
     bv, bw = rng.standard_normal((4, 3)) * 0.3, rng.standard_normal((4, 3))
     fv = rng.standard_normal((4, 4, 3)) * 0.5
-    ref = jax.jit(jax.vmap(lambda *a: jik.ik_velocities(jm, *a)))(
+    ref = jit_per_scenario(lambda *a: jik.ik_velocities(jm, *a))(
         q, bv, bw, fv)
     got = ik.ik_velocities(pm, t(q), t(bv), t(bw), t(fv))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
@@ -128,7 +129,7 @@ def test_compute_torques_matches_jax_for_each_contact_mask(models):
     q, v, q_des, v_des, f_des = _wbqp_inputs(6, 4)
     contact = np.repeat(MASKS, 2, axis=0)
     f_des = f_des * contact[..., None]
-    ref = jax.jit(jax.vmap(lambda *a: jwbqp.compute_torques(jm, wb, *a)))(
+    ref = jit_per_scenario(lambda *a: jwbqp.compute_torques(jm, wb, *a))(
         q, v, contact, q_des, v_des, f_des)
     got = wbqp.compute_torques(pm, convert.from_wbqp_config(wb), t(q), t(v),
                                t(contact), t(q_des), t(v_des), t(f_des))
@@ -144,7 +145,7 @@ def test_compute_torques_matches_jax_for_each_contact_mask(models):
 def test_pd_grav_comp_matches_jax(models):
     jm, pm = models
     q, v, q_des, v_des, _ = _wbqp_inputs(4, 9)
-    ref = jax.jit(jax.vmap(lambda *a: jwbqp.pd_grav_comp(jm, *a)))(
+    ref = jit_per_scenario(lambda *a: jwbqp.pd_grav_comp(jm, *a))(
         q, v, q_des, v_des)
     got = wbqp.pd_grav_comp(pm, t(q), t(v), t(q_des), t(v_des))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
@@ -205,9 +206,9 @@ def _tick_inputs():
 def test_targets_from_traj_matches_jax(carrier):
     cfg, pcfg, params, _, jtraj, ptraj = _plan(carrier)
     q, _, tt, t0, _ = _tick_inputs()
-    ref = jax.jit(jax.vmap(
+    ref = jit_per_scenario(
         lambda m, *a: jmc.targets_from_traj(m, cfg, *a, params.com_offset),
-        in_axes=(None, 0, 0, 0, 0)))(ja1.make_a1(), jtraj, tt, t0, q)
+        in_axes=(None, 0, 0, 0, 0))(ja1.make_a1(), jtraj, tt, t0, q)
     got = mpc_controller.targets_from_traj(
         a1.make_a1(device="cpu"), pcfg, ptraj, t(tt), t(t0), t(q),
         convert.tensor(params.com_offset, device="cpu"))
@@ -225,9 +226,9 @@ def test_control_action_matches_jax():
     cfg, pcfg, params, pparams, jtraj, ptraj = _plan(True)
     wb = jwbqp.WBQPConfig()
     q, v, tt, t0, measured = _tick_inputs()
-    ref = jax.jit(jax.vmap(
+    ref = jit_per_scenario(
         lambda m, *a: jmc.control_action_full(m, params, cfg, wb, *a),
-        in_axes=(None, 0, 0, 0, 0, 0, 0)))(ja1.make_a1(), jtraj, q, v, tt,
+        in_axes=(None, 0, 0, 0, 0, 0, 0))(ja1.make_a1(), jtraj, q, v, tt,
                                            t0, measured)
     pm, pwb = a1.make_a1(device="cpu"), convert.from_wbqp_config(wb)
     got = mpc_controller.control_action_full(pm, pparams, pcfg, pwb, ptraj,

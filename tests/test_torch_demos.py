@@ -40,6 +40,7 @@ from bilevel_gait_gen_tpu.ops import spline as jspline
 from bilevel_gait_gen_tpu.sim import engine as jengine
 from bilevel_gait_gen_tpu.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch import convert
+from torch_jax_common import jit
 
 torch.set_num_threads(2)
 
@@ -125,9 +126,9 @@ def jax_mpc_demo(cfg, n_iters):
     q0 = jnp.asarray(ja1.stand_config(), jnp.float64)
     _, params, x0, feet0, state, x_des = jax_start(cfg, q0,
                                                    jgait.make_trot(cfg))
-    state, init_stats = jax.jit(lambda s, x, e: jsolver.create_initial_run(
+    state, init_stats = jit(lambda s, x, e: jsolver.create_initial_run(
         cfg, params, s, x, e, x_des))(state, x0, feet0)
-    step = jax.jit(lambda st, x, t, ee: jsolver.solve_step(
+    step = jit(lambda st, x, t, ee: jsolver.solve_step(
         cfg, params, st, x, t, ee, x_des))
     rows = []
     for k in range(1, n_iters + 1):
@@ -137,7 +138,7 @@ def jax_mpc_demo(cfg, n_iters):
             state.traj.sched.bounds, state.traj.footholds)
         state, stats = step(state, state.traj.x_man[1], t0, feet)
         rows.append(stats)
-    res = jax.jit(lambda st, x, t, ee: jbilevel.gait_opt_update(
+    res = jit(lambda st, x, t, ee: jbilevel.gait_opt_update(
         cfg, params, st, x, t, ee, x_des))(
         state, state.traj.x_man[0], jnp.asarray(cfg.dt * n_iters,
                                                 jnp.float64), feet)

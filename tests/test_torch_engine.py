@@ -7,7 +7,8 @@ package, float64, and its structure.
   JAX package's autodiff, ~1e-15 apart);
 * a 30-tick standing rollout of ``closed_loop`` (the configuration of
   tests/test_sim_engine.py::test_closed_loop_standing_small), batch 2 on
-  the port's side against ``jax.jit(jax.vmap(closed_loop))``: every log
+  the port's side against ``jax.jit(closed_loop)`` on each scenario
+  (``torch_jax_common.jit_per_scenario``, vmap's result): every log
   field at every tick within 1e-6 of the field's largest magnitude over the
   rollout.  Measured ~1e-10: the IPM solves (the MPC's and the torque
   QP's, conditioned up to ~1e8) amplify float64 rounding, and 30 ticks of
@@ -45,6 +46,7 @@ from bilevel_gait_gen_tpu_torch.mpc import solver
 from bilevel_gait_gen_tpu_torch.sim import engine
 from bilevel_gait_gen_tpu_torch.utils.graphs import tree_leaves, tree_map
 from test_torch_cadence import assert_bitwise, no_host_data  # noqa: F401
+from torch_jax_common import jit_per_scenario
 
 torch.set_num_threads(2)
 
@@ -133,8 +135,8 @@ def run_port(port, case, **over):
 def run_jax(ref, case):
     cfg, wb, sim = case["cfg"], case["wb"], case["sim"]
     m, params, x_des = ref["model"], ref["params"], ref["x_des"]
-    run = jax.jit(jax.vmap(lambda st, q, v: jengine.closed_loop(
-        m, params, cfg, wb, sim, st, q, v, x_des, **case["loop"])))
+    run = jit_per_scenario(lambda st, q, v: jengine.closed_loop(
+        m, params, cfg, wb, sim, st, q, v, x_des, **case["loop"]))
     return run(ref["state0"], ref["q0"], jnp.zeros((B, 18)))
 
 
@@ -195,8 +197,8 @@ def test_physics_step_free_fall_and_standing_match_jax():
     rng = np.random.default_rng(2)
     v = np.stack([np.zeros(18), 0.1 * rng.standard_normal(18)])
     tau = np.stack([np.zeros(12), 5.0 * rng.standard_normal(12)])
-    ref = jax.jit(jax.vmap(lambda *a: jengine.physics_step(jm, sim, *a,
-                                                           0.001)))(q, v, tau)
+    ref = jit_per_scenario(lambda *a: jengine.physics_step(jm, sim, *a,
+                                                           0.001))(q, v, tau)
     got = engine.physics_step(pm, convert.from_sim_config(sim), t(q), t(v),
                               t(tau), 0.001)
     for g, r in zip(got, ref):

@@ -2,11 +2,11 @@
 against the JAX package's, float64: the configuration of
 tests/test_sim_engine.py::test_closed_loop_with_gait_opt_compiles (6 ticks,
 an MPC update every 2, the third a gait update) with the schedule sync on,
-batch 2 on the port's side against ``jax.jit(jax.vmap(closed_loop))``, every
-log field at every tick and the final schedule within 1e-6 of their largest
-magnitude (measured ~1e-10, as for the standing rollout of
-tests/test_torch_engine.py).  Its own file: tracing and compiling the
-vmapped reference takes a minute and more on the CPU."""
+batch 2 on the port's side against ``jax.jit(closed_loop)`` on each scenario
+(``torch_jax_common.jit_per_scenario``), every log field at every tick and
+the final schedule within 1e-6 of their largest magnitude (measured ~1e-10,
+as for the standing rollout of tests/test_torch_engine.py).  Its own file:
+tracing and compiling the reference takes a minute and more on the CPU."""
 import numpy as np
 import torch
 

@@ -30,6 +30,7 @@ from bilevel_gait_gen_tpu_torch.mpc import cadence
 from bilevel_gait_gen_tpu_torch.problem import perturbations
 
 import chip_smoke
+from torch_jax_common import jit_per_scenario
 
 torch.set_num_threads(2)
 
@@ -64,14 +65,14 @@ def test_adam_cycle_matches_jax():
     x0s = x0[None] + jnp.asarray(perturbations(B, seed=0))
     x_des = jsrb.manifold_to_tangent(x0)
     t0 = jnp.asarray(0.0)
-    step = jax.jit(jax.vmap(lambda st, x: jsolver.solve_step(
-        jcfg, params, st, x, t0, feet, x_des)))
+    step = jit_per_scenario(lambda st, x: jsolver.solve_step(
+        jcfg, params, st, x, t0, feet, x_des), jit_fn=jax.jit)
     jsolved = []
     for _ in range(FREQ - 1):
         states, stats = step(states, x0s)
         jsolved.append(np.asarray(stats.solved))
-    jres = jax.jit(jax.vmap(lambda st, x: jbilevel.gait_opt_update(
-        jcfg, params, st, x, t0, feet, x_des)))(states, x0s)
+    jres = jit_per_scenario(lambda st, x: jbilevel.gait_opt_update(
+        jcfg, params, st, x, t0, feet, x_des), jit_fn=jax.jit)(states, x0s)
 
     pr = chip_smoke.family_problem("adam", cfg, B, "cpu", torch.float64)
     _, solved, res, _ = cadence.cycle(cfg, pr.params, *pr.loop_args(), FREQ)

@@ -1,27 +1,33 @@
 """``csrc/bmv.cu`` compiled for the host (``torch_kernel_common.host_lib``)
 through ``kernels.bmv``'s CUDA branch on CPU tensors.
 
-* against its plain version (``kernels.bmv_reference``) in float32 and
-  float64, on both of its paths (one thread an entry up to K = 32, one warp
-  an entry past it), broadcast, transposed and strided operands, and more
-  batch axes than the kernel addresses: each entry within K eps of its
-  sum_k |X_k Y_k| (``kernel_checks.bmv_err`` <= 1, the first-order bound
-  of two orders of summation);
+* against the exact model of its arithmetic contract
+  (``kernel_checks.bmv_exact``: every product, FMA and butterfly add of the
+  contract's order in ``fractions.Fraction``, rounded once to the dtype,
+  ties to even), bit for bit, in float32 and float64, on both of its paths
+  (one FMA chain an entry up to K = 32, 32 lane chains and a butterfly past
+  it), broadcast, transposed and strided operands, more batch axes than the
+  kernel addresses, more rows than one block's tile and a sum longer than
+  one staged chunk of k;
+* against its plain version (``kernels.bmv_reference``) on the same cases:
+  each entry within K eps of its sum_k |X_k Y_k| (``kernel_checks.bmv_err``
+  <= 1, the first-order bound of two orders of summation);
 * a scenario's bits at batches 1, 3 and 8: the property the kernel exists
   for (the card's cuBLAS GEMV gave a scenario other bits at another batch);
 * its autograd rules (``kernels._Bmv``): gradients, ``jacfwd`` under
   ``vmap`` and reverse mode over that, as ``srb.linearize`` and the outer
   gradient take them, against the same functions on ``@``.
 
-Shapes are small: an emulated launch starts a thread per CUDA thread (32 a
-warp-path entry) under a lock that the test processes share.
+Shapes are small: an emulated launch runs a fiber per CUDA thread, and the
+exact model takes tens of microseconds a term.
 """
 import numpy as np
 import pytest
 import torch
 
 from bilevel_gait_gen_tpu_torch.ops import kernels
-from bilevel_gait_gen_tpu_torch.ops.kernel_checks import bmv_err
+from bilevel_gait_gen_tpu_torch.ops.kernel_checks import (bmv_err,
+                                                          bmv_exact)
 
 from torch_kernel_common import host_lib, host_card  # noqa: F401
 
@@ -62,12 +68,53 @@ CASES = {
                         torch.ones(2, 1, 0, dtype=d)),
 }
 
+# more lengths and tiles for the exact model (seeded apart from CASES)
+EXTRA_CASES = {
+    "matvec-k31": lambda g, d: (_randn(g, 2, 6, 31, dtype=d),
+                                _randn(g, 2, 1, 31, dtype=d)),
+    "matvec-transposed-view-k12": lambda g, d: (
+        _randn(g, 2, 12, 18, dtype=d).mT, _randn(g, 2, 1, 12, dtype=d)),
+    "matvec-warp-k64": lambda g, d: (_randn(g, 2, 5, 64, dtype=d),
+                                     _randn(g, 2, 1, 64, dtype=d)),
+    "matmul-nt-k120": lambda g, d: (_randn(g, 2, 5, 120, dtype=d),
+                                    _randn(g, 2, 4, 120, dtype=d)),
+    # more rows than one block's tile (32 rows a block at K = 40 in a
+    # matvec, 64 at K <= 32)
+    "rows-past-one-tile-k40": lambda g, d: (_randn(g, 1, 70, 40, dtype=d),
+                                            _randn(g, 1, 1, 40, dtype=d)),
+    "rows-past-one-tile-k5": lambda g, d: (_randn(g, 1, 130, 5, dtype=d),
+                                           _randn(g, 1, 1, 5, dtype=d)),
+    # a sum of many staged chunks of k, two buffers deep, over 9 rows, more
+    # than one tile
+    "chunks-of-k-2500": lambda g, d: (_randn(g, 1, 9, 2500, dtype=d),
+                                      _randn(g, 1, 1, 2500, dtype=d)),
+    # small X Y^T on the one-thread path past 32 terms
+    "small-matmul-nt-k40": lambda g, d: (_randn(g, 3, 1, 40, dtype=d),
+                                         _randn(g, 3, 2, 40, dtype=d)),
+    "small-matmul-nt-k64": lambda g, d: (_randn(g, 3, 2, 64, dtype=d),
+                                         _randn(g, 3, 2, 64, dtype=d)),
+    "wide-matmul-nt-k64": lambda g, d: (_randn(g, 1, 16, 64, dtype=d),
+                                        _randn(g, 1, 128, 64, dtype=d)),
+    # tiles whose two 32-column buffers would pass the shared memory a block
+    # may take (64 scenarios of 1 + 2 rows in float32; 32 of 2 + 2 rows and
+    # 16 + 128 rows in float64): the block holds fewer scenarios or rows
+    "small-matmul-nt-k70": lambda g, d: (_randn(g, 3, 1, 70, dtype=d),
+                                         _randn(g, 3, 2, 70, dtype=d)),
+    "small-square-matmul-nt-k70": lambda g, d: (
+        _randn(g, 3, 2, 70, dtype=d), _randn(g, 3, 2, 70, dtype=d)),
+    "wide-matmul-nt-k70": lambda g, d: (_randn(g, 1, 16, 70, dtype=d),
+                                        _randn(g, 1, 128, 70, dtype=d)),
+}
+
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(CASES) + list(EXTRA_CASES))
 def test_bmv_source_on_host_matches_reference(host_card, case, dtype):
-    gen = torch.Generator().manual_seed(sorted(CASES).index(case))
-    X, Y = CASES[case](gen, DTYPES[dtype])
+    if case in CASES:
+        seed, make = sorted(CASES).index(case), CASES[case]
+    else:
+        seed, make = 100 + list(EXTRA_CASES).index(case), EXTRA_CASES[case]
+    X, Y = make(torch.Generator().manual_seed(seed), DTYPES[dtype])
     before = kernels.bmv.launches
     got = kernels.bmv(X, Y)
     ref = kernels.bmv_reference(X, Y)
@@ -78,6 +125,10 @@ def test_bmv_source_on_host_matches_reference(host_card, case, dtype):
         return
     assert kernels.bmv.launches == before + 1
     assert bmv_err(got, ref, X, Y) <= 1.0
+    exact = bmv_exact(X, Y)
+    assert torch.equal(got, exact) and torch.equal(
+        torch.signbit(got), torch.signbit(exact)), (
+        case, dtype, int((got != exact).sum()))
 
 
 # (id, operands of the leading b of 8 scenarios): the scenario axis first

@@ -32,6 +32,7 @@ from bilevel_gait_gen_tpu_torch.problem import perturbations
 from bilevel_gait_gen_tpu_torch.utils import config
 
 import chip_smoke
+from torch_jax_common import jit
 
 torch.set_num_threads(2)
 
@@ -143,7 +144,7 @@ def test_create_initial_run_matches_jax(family):
                              ipm_iters=20, force_bound=500.0).validate()
     cfg = convert.from_config(jcfg)
     params, states, x0s, feet, x_des = _jax_start(family, jcfg, 2)
-    jst, jstats = jax.jit(jax.vmap(lambda st, x: jsolver.create_initial_run(
+    jst, jstats = jit(jax.vmap(lambda st, x: jsolver.create_initial_run(
         jcfg, params, st, x, feet, x_des)))(states, x0s)
     pr = chip_smoke.family_problem(family, cfg, 2, "cpu", F64)
     # the same start (reconstruct_state sums in another order: ~1 ulp)

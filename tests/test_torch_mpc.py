@@ -9,6 +9,8 @@ twenty 12x12 node maps, and entries span ~12 decades (H reaches ~1e8), so
 entrywise relative error means nothing for the entries near zero.  Its
 gradient with respect to the bounds: rtol 1e-7 of its largest entry;
 measured ~1e-12."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from bilevel_gait_gen_tpu_torch.mpc import gait, qp
 from bilevel_gait_gen_tpu_torch.mpc.trajectory import (default_trajectory,
                                                        make_unravel, ravel_u)
 from bilevel_gait_gen_tpu_torch.ops import spline
+from torch_jax_common import jit
 
 torch.set_num_threads(2)
 
@@ -214,11 +217,18 @@ def _perturbed(traj, seed):
         sched=traj.sched)
 
 
+@functools.lru_cache
+def _jax_assemble(cfg):
+    """``jqp.assemble`` at ``cfg``, jitted once a configuration (run op by
+    op, its first call took several times as long)."""
+    return jit(lambda *a: jqp.assemble(cfg, *a))
+
+
 def _assemble_pair(cfg, traj, params, x0, feet0, t0, box=None):
     box = jnp.asarray(cfg.ee_box_size if box is None else box, jnp.float64)
     x_des = jsrb.manifold_to_tangent(x0)
-    ref = jqp.assemble(cfg, params, traj, x0, jnp.asarray(t0), feet0, x_des,
-                       box)
+    ref = _jax_assemble(cfg)(params, traj, x0, jnp.asarray(t0), feet0,
+                             x_des, box)
     b1 = jax.tree.map(lambda a: a[None], (traj, x0, feet0, x_des, box))
     tr, x0_t, feet_t, xd_t, box_t = b1
     got = qp.assemble(cfg, convert.from_srb_params(params, device="cpu"),
@@ -284,7 +294,7 @@ def test_assemble_gradient_wrt_bounds_matches_jax():
         return (0.5 * uu @ q_.H @ uu + q_.q @ uu + jnp.sum(q_.G @ uu - q_.h)
                 + jnp.sum(q_.A @ uu - q_.b) + q_.cost_const)
 
-    gj = jax.grad(jobj)(traj.sched.bounds)
+    gj = jit(jax.grad(jobj))(traj.sched.bounds)
     tr_t = convert.from_trajectory(jax.tree.map(lambda a: a[None], traj), device="cpu")
     bounds = tr_t.sched.bounds.clone().requires_grad_(True)
     tr_t = type(tr_t)(x_man=tr_t.x_man, f_nodes=tr_t.f_nodes,
@@ -400,8 +410,9 @@ def test_assemble_ad_is_assemble_in_both_packages(case):
     box = jnp.asarray(cfg.ee_box_size, jnp.float64)
     x0b = x0.at[0].add(0.02).at[7].add(0.1)
     t0 = 0.13
-    a = (cfg, params, traj, x0, jnp.asarray(t0), feet0, x_des, box)
-    jad, jcf = jqp.assemble_ad(*a), jqp.assemble(*a)
+    a = (params, traj, x0, jnp.asarray(t0), feet0, x_des, box)
+    jad = jit(lambda *b: jqp.assemble_ad(cfg, *b))(*a)
+    jcf = _jax_assemble(cfg)(*a)
     tr = convert.from_trajectory(
         jax.tree.map(lambda a: jnp.stack([a, a]), traj), device="cpu")
     args = (cfg, convert.from_srb_params(params, device="cpu"), tr,

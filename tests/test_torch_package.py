@@ -22,6 +22,7 @@ from bilevel_gait_gen_tpu_torch import convert
 from bilevel_gait_gen_tpu_torch.ops import kernels
 from bilevel_gait_gen_tpu_torch.utils.precision import set_fp32_precision
 from test_torch_demos import script
+from torch_jax_common import jit
 
 torch.set_num_threads(2)
 
@@ -210,11 +211,12 @@ def test_convert_round_trip():
     assert np.isinf(st_np.qp_warm.gap)
 
     x_des = jsrb.manifold_to_tangent(x0)
-    qp = jqp.assemble(CFG, params, state.traj, x0, jnp.asarray(0.0), feet0,
-                      x_des, state.ee_box)
+    qp = jit(lambda *a: jqp.assemble(CFG, *a))(
+        params, state.traj, x0, jnp.asarray(0.0), feet0, x_des, state.ee_box)
     _assert_same(convert.to_numpy(convert.from_condensed_qp(qp, device="cpu")), qp,
                  ["H", "q", "A", "b", "G", "h", "S", "c", "cost_const"])
-    sol = jpdip.solve(qp.H, qp.q, qp.A, qp.b, qp.G, qp.h, iters=3)
+    sol = jit(lambda *a: jpdip.solve(*a, iters=3))(
+        qp.H, qp.q, qp.A, qp.b, qp.G, qp.h)
     _assert_same(convert.to_numpy(convert.from_qp_solution(sol, device="cpu")), sol,
                  ["x", "y", "lam", "s", "iters", "gap", "pri_res", "dua_res"])
 

@@ -15,6 +15,7 @@ import torch
 from bilevel_gait_gen_tpu.models import a1 as ja1, rbd as jrbd
 from bilevel_gait_gen_tpu_torch import convert
 from bilevel_gait_gen_tpu_torch.models import a1, rbd
+from torch_jax_common import jit
 
 torch.set_num_threads(2)
 
@@ -87,7 +88,7 @@ def test_matches_jax(name):
     q, v = _inputs()
     jfn, pfn = CASES[name]
     jm = ja1.make_a1()
-    ref = jax.jit(jax.vmap(lambda qq, vv: jfn(jm, qq, vv)))(jnp.asarray(q),
+    ref = jit(jax.vmap(lambda qq, vv: jfn(jm, qq, vv)))(jnp.asarray(q),
                                                             jnp.asarray(v))
     got = pfn(a1.make_a1(device="cpu"), torch.tensor(q), torch.tensor(v))
     assert_close_rel(got, ref)

@@ -32,6 +32,7 @@ from bilevel_gait_gen_tpu.utils.config import MPCConfig
 from bilevel_gait_gen_tpu_torch import convert, problem
 from bilevel_gait_gen_tpu_torch.mpc import bilevel, solver
 from bilevel_gait_gen_tpu_torch.ops import kernels
+from torch_jax_common import jit_per_scenario
 
 torch.set_num_threads(2)
 
@@ -64,12 +65,12 @@ def jax_run():
         x0s = x0[None] + jnp.asarray(problem.perturbations(B, seed=0))
         states = jax.tree.map(lambda a: jnp.stack([a] * B), state)
         t0 = jnp.asarray(0.0)
-        init = jax.jit(jax.vmap(lambda st, x: jsolver.create_initial_run(
-            JCFG, params, st, x, feet0, x_des, t0)))
-        step = jax.jit(jax.vmap(lambda st, x: jsolver.solve_step(
-            JCFG, params, st, x, t0, feet0, x_des)))
-        gait_up = jax.jit(jax.vmap(lambda st, x: jbilevel.gait_opt_update(
-            JCFG, params, st, x, t0, feet0, x_des)))
+        init = jit_per_scenario(lambda st, x: jsolver.create_initial_run(
+            JCFG, params, st, x, feet0, x_des, t0), jit_fn=jax.jit)
+        step = jit_per_scenario(lambda st, x: jsolver.solve_step(
+            JCFG, params, st, x, t0, feet0, x_des), jit_fn=jax.jit)
+        gait_up = jit_per_scenario(lambda st, x: jbilevel.gait_opt_update(
+            JCFG, params, st, x, t0, feet0, x_des), jit_fn=jax.jit)
         states, init_stats = init(states, x0s)
         history = [(states, init_stats)]
         for _ in range(RTIS):
