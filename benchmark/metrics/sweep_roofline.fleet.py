@@ -1,0 +1,11 @@
+"""``sweep_roofline.fleet``: the share of their roofline that a cycle's
+``gtwg`` and ``ipm_iter`` calls reach, sum(count x bound) over
+sum(count x time), each kind of call replayed alone as a graph
+(``harness/calls.py``)."""
+
+
+def read(record):
+    r = record.get("roofline", {}).get("sweep")
+    if not r or r["ms"] <= 0:
+        return None
+    return 100.0 * r["bound_ms"] / r["ms"]
